@@ -22,10 +22,15 @@ Phases (each prints one line, any failure exits non-zero):
    schedule report must agree across backends (reports up to the
    fused/host wave split, which differs by construction) and with the
    plain PyTorch versions on the CPU, and every circuit must be well
-   formed;
-4. launches — each kernel's launch count in phase 3 (all > 0), the
-   kernel table as one JSON line, the card's name and power limit, and
-   the closing ``{"ok": true, ...}`` line.
+   formed.  Each path runs with the launch counts set to 0 just before
+   it and read just after: its own kernels (``PATH_KERNELS``) must have
+   launched, and no other;
+4. timing — µs per allocation of each path over rotated rounds (median
+   and range), and the host time of one split-pipeline scoring round on
+   the scoring kernel against numpy (the allocator's choice);
+5. launches — the per-path counts in the kernel table (one JSON line),
+   the card's name and power limit, and the closing ``{"ok": true, ...}``
+   line.
 """
 from __future__ import annotations
 
@@ -344,27 +349,52 @@ def report_key(rep, with_waves=False):
     return d
 
 
-def phase_slice(mesh, device, n_transfers=N_TRANSFERS, n_flushes=N_FLUSHES,
-                cpu_check=True):
-    """The four fabrics on the device, checked against each other, the
-    plain CPU versions and the circuit invariants.  Returns the stats."""
+N_SLOTS = 16
+PATHS = ("fused", "host", "auto", "light")
+# The kernels each path launches (and no other): the fused backend sends
+# every prepare round, conflict re-searches included, through the fused
+# kernel; "auto" sends full waves there and keeps rounds of 8 or fewer
+# on the host; the split pipeline (host backend, NoM-Light) searches
+# rounds of more than 8 with the search kernel.  As in the reference,
+# slot scoring runs on the device only inside the fused kernel
+# (nom::slot_cost); the split pipeline scores on the host, so the
+# standalone scoring kernel is held against its plain version in phase 2
+# and timed against host scoring in phase 4, and launches on no path.
+PATH_KERNELS = {"fused": ("fused_prepare",), "auto": ("fused_prepare",),
+                "host": ("wavefront_search",),
+                "light": ("wavefront_search",)}
+
+
+def make_fabric(mesh, kind: str, device):
     from repro_torch.core import NomFabric, TdmAllocatorLight
-    n_slots = 16
-    chunks = make_stream(mesh, n_transfers, SEED, n_flushes)
+    if kind == "light":
+        return NomFabric(allocator=TdmAllocatorLight(mesh, N_SLOTS,
+                                                     device=str(device)))
+    return NomFabric(mesh=mesh, n_slots=N_SLOTS, alloc_backend=kind,
+                     device=str(device))
+
+
+def phase_slice(mesh, device, chunks, cpu_check=True):
+    """The four paths on the device, each driven with the launch counts
+    set to 0 just before it and read just after, checked against each
+    other, the plain CPU versions and the circuit invariants.  Returns
+    (stats, per-path launch counts)."""
+    from repro_torch.kernels.slot_alloc import _lib
+    n_slots = N_SLOTS
     reqs = [r for c in chunks for r in c]
-
-    def fabric(kind, dev):
-        if kind == "light":
-            return NomFabric(allocator=TdmAllocatorLight(mesh, n_slots,
-                                                         device=str(dev)))
-        return NomFabric(mesh=mesh, n_slots=n_slots, alloc_backend=kind,
-                         device=str(dev))
-
-    runs = {}
-    for kind in ("fused", "host", "auto", "light"):
-        fab = fabric(kind, device)
+    runs, launches = {}, {}
+    for kind in PATHS:
+        fab = make_fabric(mesh, kind, device)
+        _lib.reset_launch_counts()
         res, reps, secs = drive(fab, chunks)
+        launches[kind] = dict(_lib.launch_counts)
         runs[kind] = (fab, res, reps, secs)
+        own = PATH_KERNELS[kind]
+        check(all(launches[kind][k] > 0 for k in own),
+              f"{kind}: a kernel of the path never launched: "
+              f"{launches[kind]}")
+        check(all(v == 0 for k, v in launches[kind].items() if k not in own),
+              f"{kind}: launched a kernel outside its path: {launches[kind]}")
     keys = {k: [circuit_key(r.circuit) for r in v[1]] for k, v in runs.items()}
     for kind in ("host", "auto"):
         check(keys[kind] == keys["fused"],
@@ -383,7 +413,7 @@ def phase_slice(mesh, device, n_transfers=N_TRANSFERS, n_flushes=N_FLUSHES,
           "the fused backend served no wave")
     if cpu_check:
         for kind in ("fused", "light"):
-            res, reps, _s = drive(fabric(kind, "cpu"), chunks)
+            res, reps, _s = drive(make_fabric(mesh, kind, "cpu"), chunks)
             check([circuit_key(r.circuit) for r in res] == keys[kind],
                   f"{kind}: CUDA and plain CPU circuits differ")
             check([report_key(a, True) for a in reps]
@@ -391,16 +421,116 @@ def phase_slice(mesh, device, n_transfers=N_TRANSFERS, n_flushes=N_FLUSHES,
                   f"{kind}: CUDA and plain CPU reports differ")
     n = len(reqs)
     tel = {k: v[0].telemetry() for k, v in runs.items()}
-    stats = {k: {"us_per_alloc": v[3] / n * 1e6,
+    stats = {k: {"seconds": v[3],
                  "scheduled": tel[k]["scheduled"],
                  "fused_waves": tel[k]["fused_waves"],
                  "host_waves": tel[k]["host_waves"],
                  "conflicts": tel[k]["conflicts"]} for k, v in runs.items()}
-    print(f"[slice] {n} transfers in {n_flushes} flushes on "
+    print(f"[slice] {n} transfers in {len(chunks)} flushes on "
           f"{mesh.X}x{mesh.Y}x{mesh.Z}/{n_slots}: fused == host == auto "
           f"circuits and reports, CUDA == plain CPU (fused, light); "
           f"{json.dumps(stats)}", flush=True)
-    return stats
+    print(f"[launches] per path, each read right after its run: "
+          f"{json.dumps(launches)}", flush=True)
+    return stats, launches, keys
+
+
+def phase_timing(mesh, device, chunks, keys, rounds=8):
+    """µs per allocation of every path: ``rounds`` rounds, each running
+    every path on a fresh fabric, with the order rotated by one place per
+    round (each path takes each place equally often when ``rounds`` is a
+    multiple of the number of paths).  Returns path -> sorted samples."""
+    n = sum(len(c) for c in chunks)
+    samples = {k: [] for k in PATHS}
+    for r in range(rounds):
+        for k in PATHS[r % len(PATHS):] + PATHS[:r % len(PATHS)]:
+            res, _reps, secs = drive(make_fabric(mesh, k, device), chunks)
+            check([circuit_key(x.circuit) for x in res] == keys[k],
+                  f"{k}: circuits differ from the checked run")
+            samples[k].append(secs / n * 1e6)
+    out = {k: sorted(v) for k, v in samples.items()}
+    print("[timing] us/alloc median (min-max) over "
+          f"{rounds} rotated rounds: " + "; ".join(
+              f"{k} {np.median(v):.2f} ({v[0]:.2f}-{v[-1]:.2f})"
+              for k, v in out.items()), flush=True)
+    return out
+
+
+def kernel_scoring(avail, dists, t_readys, device):
+    """One split-pipeline scoring round on the scoring kernel: a (3, B)
+    int32 upload, one launch, a (B, n_slots) pull and the argmin, with
+    ``_best_slots_np``'s contract (a denied row's start cycle aside)."""
+    import torch
+    from repro_torch.kernels.slot_alloc import fused as kf
+    req = torch.from_numpy(np.stack([
+        np.asarray(avail, np.uint32).view(np.int32),
+        np.asarray(dists, np.int32),
+        np.asarray(t_readys, np.int32)])).to(device)
+    cost = kf.slot_score(req[0], req[1], req[2],
+                         n_slots=N_SLOTS).cpu().numpy()
+    a = cost.argmin(1)
+    free = cost != kf.FAR32
+    return (cost[np.arange(len(cost)), a].astype(np.int64), a, free,
+            ~free.any(1))
+
+
+def phase_scoring(mesh, device, host_rounds: int,
+                  batches=(WAVE, 2 * WAVE), reps=200, blocks=7):
+    """Why the split pipeline scores on the host: host time of one
+    scoring round on the scoring kernel (:func:`kernel_scoring`) against
+    the reference's numpy scoring (``_best_slots_np``, what the
+    allocator runs), on the availability vectors of a real search round
+    (2 x 64 rows is NoM-Light's cross-layer round: both phase orders).
+    Blocks of ``reps`` calls alternate between the two; returns the
+    medians.  ``host_rounds`` is the count of device-searched rounds of
+    the host path's run, the rounds the kernel would score."""
+    import torch
+    from repro_torch.core import PORT_LOCAL
+    from repro_torch.core.bitvec import packed_numpy, packed_tensor
+    from repro_torch.core.slot_alloc import _best_slots_np
+    from repro_torch.kernels.slot_alloc import slot_alloc as ks
+    rng = np.random.default_rng(SEED + 1)
+    occ, _alloc = occupied_table(mesh, N_SLOTS, device)
+    occ_np = packed_numpy(occ)
+    out = {}
+    for B in batches:
+        s, d, _init, _t, srcs_np, dsts_np = kernel_inputs(
+            mesh, N_SLOTS, B, device, rng)
+        init = packed_tensor(np.zeros(B, np.uint32), device)   # as a wave
+        vecs = packed_numpy(ks.wavefront_search_packed(
+            occ, s, d, init, mesh=mesh, n_slots=N_SLOTS))
+        avail = vecs[np.arange(B), dsts_np] | occ_np[dsts_np, PORT_LOCAL]
+        dists = np.abs(mesh.coord_array[srcs_np]
+                       - mesh.coord_array[dsts_np]).sum(1)
+        t = rng.integers(3, 2 ** 20, size=B)
+        arms = {"kernel": lambda: kernel_scoring(avail, dists, t, device),
+                "numpy": lambda: _best_slots_np(avail, dists, t, N_SLOTS)}
+        a, b = arms["kernel"](), arms["numpy"]()
+        ok = ~b[3]                # a denied row's start cycle is unused
+        check(all(np.array_equal(x, y) for x, y in zip(a[1:], b[1:]))
+              and np.array_equal(a[0][ok], b[0][ok]),
+              f"kernel and numpy scoring disagree at B={B}")
+        times = {k: [] for k in arms}
+        for _ in range(blocks):
+            for k, fn in arms.items():
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                times[k].append((time.perf_counter() - t0) / reps * 1e6)
+        out[B] = {k: float(np.median(v)) for k, v in times.items()}
+    # The rounds the host path searched on the device (64-row waves) are
+    # the ones the kernel would score.
+    per_alloc = ((out[WAVE]["kernel"] - out[WAVE]["numpy"]) * host_rounds
+                 / N_TRANSFERS)
+    print("[scoring] host us per split-pipeline scoring round, median of "
+          f"{blocks} alternating blocks: " + "; ".join(
+              f"B={B} kernel {v['kernel']:.2f} numpy {v['numpy']:.2f}"
+              for B, v in out.items())
+          + f"; kernel scoring would add {per_alloc:.3f} us/alloc to the "
+          "host path", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -453,35 +583,41 @@ def main() -> int:
 
     rows, max_err = phase_kernels(PAPER_MESH, device)
 
-    _lib.reset_launch_counts()
-    stats = phase_slice(PAPER_MESH, device)
-    launches = dict(_lib.launch_counts)
-    print(f"[launches] {json.dumps(launches)}", flush=True)
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
+    chunks = make_stream(PAPER_MESH, N_TRANSFERS, SEED, N_FLUSHES)
+    stats, launches, keys = phase_slice(PAPER_MESH, device, chunks)
+    timing = phase_timing(PAPER_MESH, device, chunks, keys)
+    phase_scoring(PAPER_MESH, device, launches["host"]["wavefront_search"])
 
     smi = nvidia_smi()
-    print("[alloc] us/alloc " + " ".join(
-        f"{k} {v['us_per_alloc']:.2f}" for k, v in stats.items())
+    print("[alloc] us/alloc median " + " ".join(
+        f"{k} {np.median(v):.2f}" for k, v in timing.items())
         + f" ({smi})", flush=True)
-    # Upper estimate of the kernels' share of the runs' wall time:
+    # Upper estimate of the kernels' share of each path's wall time:
     # every launch priced at its 64-request time (conflict re-searches
     # launch 1-request waves, which take no longer).
-    kern_ms = sum(launches[k] * rows[(k, WAVE)]["ms"] for k in launches)
-    wall_ms = sum(v["us_per_alloc"] for v in stats.values()) \
-        * N_TRANSFERS / 1e3
-    print(f"[where] kernel time <= {kern_ms:.3f} ms of {wall_ms:.1f} ms wall "
-          f"over the {len(stats)} runs ({100 * kern_ms / wall_ms:.2f} %)",
-          flush=True)
+    share = {}
+    for kind, counts in launches.items():
+        kern_ms = sum(v * rows[(k, WAVE)]["ms"] for k, v in counts.items())
+        share[kind] = (f"{kern_ms:.3f} ms of "
+                       f"{stats[kind]['seconds'] * 1e3:.1f} ms "
+                       f"({100 * kern_ms / (stats[kind]['seconds'] * 1e3):.2f} %)")
+    print(f"[where] kernel time <= {json.dumps(share)}", flush=True)
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         row = rows[(name, WAVE)]
+        by_path = {kind: counts[name] for kind, counts in launches.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
+        if not any(name in own for own in PATH_KERNELS.values()):
+            kernels[-1]["note"] = ("launches on no path: the main path "
+                                   "scores inside fused_prepare "
+                                   "(nom::slot_cost), the split pipeline "
+                                   "on the host, as the reference does")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -749,7 +749,7 @@ class TdmAllocator:
         self.last_report = BatchReport()
         # backend picks who serves a prepare round (search + slot choice +
         # trace-back): "fused" = always the one-launch fused kernel,
-        # "host" = always the split pipeline (search and scoring kernels,
+        # "host" = always the split pipeline (search kernel; scoring,
         # trace-back and bundles on the host), "auto" = fused for full
         # waves, host for tiny rounds (serial allocate, conflict-scoped
         # re-search) where launch overhead dwarfs the compute.
@@ -1223,23 +1223,21 @@ class TdmAllocator:
         return wave, lo, emit_rows, fp, n_win, dists_l
 
     # -- search + vectorized post-search pipeline -----------------------------
-    def _searches_on_device(self, m: int) -> bool:
-        """Does a search round of ``m`` entries run as a device launch?
-        At or below :data:`_SMALL_SEARCH` entries — a conflict-scoped
-        re-search round, a serial ``allocate`` — the host topological
-        evaluation is cheaper than the launch (unless ``use_kernels``)."""
-        return not (self._host_small and m <= _SMALL_SEARCH)
-
     def _run_search(self, occ, window, srcs, dsts, inits) -> np.ndarray:
         """One wavefront pass over ``srcs``/``dsts``/``inits`` (numpy
         arrays) against the host busy masks ``occ`` valid at ``window``.
 
-        Device rounds launch the search kernel over the version-keyed
+        Large rounds launch the search kernel over the version-keyed
         device occupancy (no power-of-two padding: a CUDA launch has no
-        per-shape compile to amortize); host rounds run the scalar
-        topological evaluation.  Returns (len(srcs), n_nodes) uint32 busy
-        vectors (numpy)."""
-        if not self._searches_on_device(len(srcs)):
+        per-shape compile to amortize); at or below :data:`_SMALL_SEARCH`
+        entries — a conflict-scoped re-search round, a serial
+        ``allocate`` — the host topological evaluation is cheaper than
+        the launch (unless ``use_kernels``).  Returns (len(srcs),
+        n_nodes) uint32 busy vectors (numpy).  Slot scoring of the round
+        stays on the host (:func:`_best_slots_np`), as in the reference:
+        one scoring round of 64 rows takes less host time in numpy than
+        an upload, a scoring launch and a pull."""
+        if self._host_small and len(srcs) <= _SMALL_SEARCH:
             return np.stack([
                 _wavefront_host(occ, self.mesh, self.n_slots, int(s),
                                 int(d), int(iv))
@@ -1249,29 +1247,6 @@ class TdmAllocator:
             np.asarray(inits, np.uint32), mesh=self.mesh,
             n_slots=self.n_slots)
         return packed_numpy(vecs)
-
-    def _best_slots(self, avail: np.ndarray, dists: np.ndarray,
-                    t_readys: np.ndarray, on_device: bool):
-        """:func:`_best_slots_np`'s contract for one prepare round.  A
-        round whose search ran on the device scores there too (the
-        slot-score kernel: one launch, one (B, n_slots) pull), under the
-        same int32 guard as the fused backend; host rounds and start
-        cycles beyond the guard score in int64 on the host.  The argmin
-        (first minimum) is identical either way."""
-        from repro_torch.kernels.slot_alloc import fused as _fused
-        n = self.n_slots
-        if not (on_device and len(avail)
-                and int(t_readys.max()) < _fused.t_ready_limit(n)):
-            return _best_slots_np(avail, dists, t_readys, n)
-        req = torch.from_numpy(np.stack([
-            np.asarray(avail, np.int64), np.asarray(dists, np.int64),
-            np.asarray(t_readys, np.int64)])).to(self.device)
-        cost = _fused.slot_score(req[0], req[1], req[2],
-                                 n_slots=n).cpu().numpy()
-        a = cost.argmin(1)
-        free = cost != _fused.FAR32
-        return (cost[np.arange(len(cost)), a].astype(np.int64), a, free,
-                ~free.any(1))
 
     def _prepare_states(self, reqs: list[CopyRequest], t_readys: np.ndarray,
                         window: int) -> list[_Prepared]:
@@ -1372,9 +1347,7 @@ class TdmAllocator:
                                 np.zeros(len(reqs), np.uint32))
         return self._prepare_full(reqs, t_readys, vecs,
                                   np.arange(len(reqs)), occ, window,
-                                  srcs=srcs, dsts=dsts,
-                                  on_device=self._searches_on_device(
-                                      len(reqs)))
+                                  srcs=srcs, dsts=dsts)
 
     def _reprepare_conflict(self, req: CopyRequest, t_ready: np.ndarray,
                             window: int) -> _Prepared:
@@ -1527,12 +1500,10 @@ class TdmAllocator:
             if k == 1 else None)
 
     def _prepare_full(self, reqs, t_readys, vecs, rows, occ, window,
-                      srcs=None, dsts=None,
-                      on_device: bool = False) -> list[_Prepared]:
+                      srcs=None, dsts=None) -> list[_Prepared]:
         """The full-mesh post-search pipeline over one round's converged
-        vectors: batch slot choice (on the device when the round's search
-        ran there), batched trace-back of the chosen arrival slot *and*
-        every extra-slot candidate, bundle assembly."""
+        vectors: vectorized slot choice, batched trace-back of the chosen
+        arrival slot *and* every extra-slot candidate, bundle assembly."""
         n = self.n_slots
         B = len(reqs)
         if B == 1:
@@ -1544,8 +1515,7 @@ class TdmAllocator:
             dsts = np.fromiter((r.dst for r in reqs), np.int64, B)
         dists = np.abs(coords[srcs] - coords[dsts]).sum(1)
         avail = vecs[rows, dsts] | occ[dsts, PORT_LOCAL]
-        starts, arr, free, denied = self._best_slots(avail, dists, t_readys,
-                                                     on_device)
+        starts, arr, free, denied = _best_slots_np(avail, dists, t_readys, n)
         want = np.fromiter(
             (0 if (r.op == "init" or denied[k]) else r.max_extra_slots
              for k, r in enumerate(reqs)), np.int64, B)
@@ -1710,24 +1680,22 @@ class TdmAllocatorLight(TdmAllocator):
         vecs = self._run_search(occ, window, np.asarray(e_src, np.int64),
                                 np.asarray(e_dst, np.int64),
                                 np.asarray(e_init, np.uint32))
-        on_device = self._searches_on_device(len(e_src))
         # Same-layer subset: the full-mesh pipeline on its own vec rows.
         same_ix = [i for i, m in enumerate(meta) if isinstance(m, int)]
         same_states = iter(self._prepare_full(
             [reqs[i] for i in same_ix], t_readys[same_ix], vecs,
             np.asarray([meta[i] for i in same_ix], np.int64), occ, window,
-            on_device=on_device) if same_ix else [])
+            ) if same_ix else [])
 
         # Cross-layer subset, vectorized over requests.
         cross_ix = [i for i, m in enumerate(meta) if not isinstance(m, int)]
         cross = self._prepare_cross(reqs, t_readys, meta, cross_ix, vecs,
-                                    occ, bus, window, on_device)
+                                    occ, bus, window)
         return [next(same_states) if isinstance(m, int) else cross[i]
                 for i, m in enumerate(meta)]
 
     def _prepare_cross(self, reqs, t_readys, meta, cross_ix, vecs, occ, bus,
-                       window, on_device: bool = False
-                       ) -> dict[int, _Prepared]:
+                       window) -> dict[int, _Prepared]:
         mesh, n = self.mesh, self.n_slots
         out: dict[int, _Prepared] = {}
         if not cross_ix:
@@ -1749,14 +1717,8 @@ class TdmAllocatorLight(TdmAllocator):
         availA = (rotr_np(vecs[rowsA, w_nodes] | bus[colw], n)
                   | occ[dsts, PORT_LOCAL])
         availB = vecs[rowsA + 1, dsts] | occ[dsts, PORT_LOCAL]
-        # Both phase orders score in one pass (one launch on the device).
-        c2, a2, free2, den2 = self._best_slots(
-            np.concatenate([availA, availB]), np.concatenate([total, total]),
-            np.concatenate([t_sub, t_sub]), on_device)
-        cA, cB = c2[:B], c2[B:]
-        aA, aB = a2[:B], a2[B:]
-        freeA, freeB = free2[:B], free2[B:]
-        denA, denB = den2[:B], den2[B:]
+        cA, aA, freeA, denA = _best_slots_np(availA, total, t_sub, n)
+        cB, aB, freeB, denB = _best_slots_np(availB, total, t_sub, n)
         useB = cB < cA            # strict: order A wins ties, as the serial scan
         a0 = np.where(useB, aB, aA)
         starts = np.where(useB, cB, cA)

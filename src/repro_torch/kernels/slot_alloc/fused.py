@@ -10,10 +10,12 @@ and ``flags`` (B, 2 + n_slots) = [denied, ok, free[n_slots]] — while the
 converged (B, n) vectors stay on the device unless a caller asks for
 them (:meth:`FusedPrepare.vecs_np`, extra-slot bundles only).
 
-Slot scoring alone (``csrc/slot_score.cu``) serves the split pipeline:
-rounds whose search ran as its own launch score their availability
-vectors on the device too.  Both kernels score through one ``__device__``
-function, in int32: callers keep ``t_ready < 2**31 - 2*n_slots``
+Slot scoring alone (``csrc/slot_score.cu``) is the counterpart of the
+reference's standalone scoring kernel.  As in the reference, the
+allocator reaches scoring on the device only inside the fused prepare;
+the split pipeline scores on the host (``_best_slots_np``).  Both
+kernels score through one ``__device__`` function
+(``nom::slot_cost``), in int32: callers keep ``t_ready < 2**31 - 2*n_slots``
 (:func:`t_ready_limit`), below which every feasible cost is under
 :data:`FAR32` and the argmin equals the host's int64 choice.
 
