@@ -5,17 +5,22 @@ Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA H100 (``sm_90a``), the CUDA toolkit and PyTorch built for
 CUDA.  It imports nothing of JAX or of the JAX package ``repro``.
 
-Phases (each prints one line, any failure exits non-zero):
+Phases (each prints its lines; any failure exits non-zero):
 
-1. build — compile the three slot-allocator kernels from
-   ``src/repro_torch/kernels/slot_alloc/csrc`` (one nvcc each, in
-   parallel);
+1. build — compile the five kernels from ``src/repro_torch/kernels/*/csrc``
+   (one nvcc each, in parallel);
 2. kernels — wavefront search, slot scoring and fused prepare against
    their plain PyTorch versions on the card, bit-equal, at the paper mesh
    (8x8x4) with 16 and 32 slots and batches of 64, 1000 and 1024, on
    occupancy taken from a real allocator state; times at the main
    path's shape (a 64-request search wave, 16 slots);
-3. slice — ``NomFabric(mesh=PAPER_MESH, n_slots=16)`` with the fused,
+3. model kernels — flash attention and the RG-LRU scan against their
+   plain versions at the model's prefill shapes (B=2, S=4096, 16/1
+   heads of 256, window 2048, bf16; (2, 4096, 4096) fp32) and at odd
+   ones (S not a block multiple, GQA, no window, fp32), to the
+   tolerances of tests/test_kernels.py; times at the model's shapes,
+   and SDPA on the same mask as the attention's library time;
+4. slice — ``NomFabric(mesh=PAPER_MESH, n_slots=16)`` with the fused,
    host and auto allocator backends, and a NoM-Light fabric, on one seeded
    stream of 4096 transfers (copies of 512 B-64 KB with 0-3 extra slots,
    in-place inits, fan-in reduces) in 8 flushes: every circuit and
@@ -25,17 +30,24 @@ Phases (each prints one line, any failure exits non-zero):
    formed.  Each path runs with the launch counts set to 0 just before
    it and read just after: its own kernels (``PATH_KERNELS``) must have
    launched, and no other;
-4. timing — µs per allocation of each path over rotated rounds (median
+5. timing — µs per allocation of each path over rotated rounds (median
    and range), and the host time of one split-pipeline scoring round on
    the scoring kernel against numpy (the allocator's choice);
-5. launches — the per-path counts in the kernel table (one JSON line),
-   the card's name and power limit, and the closing ``{"ok": true, ...}``
-   line.
+6. model — ``recurrentgemma-smoke`` on the card against the CPU plain
+   versions; then ``recurrentgemma-9b`` at full width and depth from
+   seeded weights on the card: the prefill step on B=2 x S=4096 (12
+   flash_attention and 26 rglru_scan launches, nothing else), decode vs
+   forward over 64 tokens, ``Engine.generate`` for 4 requests (no
+   launch), times, a profile of one prefill and of one decode step,
+   and the peak memory;
+7. the kernel table (one JSON line, launches per path), the card's name
+   and power limit, and the closing ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -188,10 +200,10 @@ def raw_launcher(name: str, device, *args):
     entry point with its arguments resolved once (these launches are
     not counted; they only measure)."""
     import torch
-    from repro_torch.kernels.slot_alloc import _lib
+    from repro_torch.kernels import _lib
     if device.type != "cuda":
         return None
-    fn = getattr(_lib._library(name), f"{name}_launch")
+    fn = getattr(_lib.library(name), f"{name}_launch")
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
 
@@ -237,7 +249,6 @@ def phase_kernels(mesh, device, batches=(64, 1000, 1024), slots=(16, 32),
     from repro_torch.core.bitvec import as_i32_bits, as_i64
     from repro_torch.kernels.slot_alloc import fused as kf
     from repro_torch.kernels.slot_alloc import slot_alloc as ks
-    from repro_torch.kernels.slot_alloc import _lib
     rng = np.random.default_rng(SEED)
     rows = {}
     max_err: dict[str, int] = {}
@@ -278,7 +289,7 @@ def phase_kernels(mesh, device, batches=(64, 1000, 1024), slots=(16, 32),
                     f"{nd} denied rows)")
             if n_slots == 16 and B in (WAVE, max(batches)):
                 wb = work(mesh, n_slots, srcs_np, dsts_np)
-                thr = _lib.cta_threads(mesh.n_nodes)
+                thr = ks.cta_threads(mesh.n_nodes)
                 X, Y, Z = mesh.X, mesh.Y, mesh.Z
                 occ32 = as_i32_bits(occ)
                 timed = {
@@ -324,7 +335,7 @@ def phase_kernels(mesh, device, batches=(64, 1000, 1024), slots=(16, 32),
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the slice end to end
+# Phase 4: the slice end to end
 # ---------------------------------------------------------------------------
 def drive(fabric, chunks):
     """Schedule every chunk (one flush each, overlapping in time);
@@ -379,7 +390,7 @@ def phase_slice(mesh, device, chunks, cpu_check=True):
     set to 0 just before it and read just after, checked against each
     other, the plain CPU versions and the circuit invariants.  Returns
     (stats, per-path launch counts)."""
-    from repro_torch.kernels.slot_alloc import _lib
+    from repro_torch.kernels import _lib
     n_slots = N_SLOTS
     reqs = [r for c in chunks for r in c]
     runs, launches = {}, {}
@@ -534,6 +545,385 @@ def phase_scoring(mesh, device, host_rounds: int,
 
 
 # ---------------------------------------------------------------------------
+# Phase 3: the model kernels (#4 flash attention, #6 RG-LRU scan)
+# ---------------------------------------------------------------------------
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+# (b, sq, sk, hq, hkv, d, causal, window, dtype, tol); the first is the
+# model's prefill shape (recurrentgemma-9b, B=2 x S=4096), the next five
+# test_flash_attention_sweep's, then odd ones: S not a block multiple,
+# g=2 GQA, no window, fp32, Sk != Sq without causality.
+FLASH_MODEL = (2, 4096, 4096, 16, 1, 256, True, 2048, "bfloat16", 2e-2)
+FLASH_CASES = [
+    FLASH_MODEL,
+    (2, 256, 256, 4, 2, 64, True, None, "float32", 2e-5),
+    (1, 200, 200, 4, 1, 64, True, 64, "float32", 2e-5),
+    (2, 128, 384, 8, 8, 128, False, None, "float32", 2e-5),
+    (1, 256, 256, 2, 2, 64, True, None, "bfloat16", 2e-2),
+    (1, 96, 96, 4, 4, 32, True, 32, "float32", 2e-5),
+    (1, 333, 333, 4, 2, 64, True, None, "float32", 2e-5),
+    (1, 200, 200, 4, 2, 256, True, None, "float32", 2e-5),
+    (2, 100, 150, 4, 2, 128, False, None, "float32", 2e-5),
+]
+# (b, s, w, dtype, tol): the model's shape, then odd ones.
+RGLRU_MODEL = (2, 4096, 4096, "float32", 1e-5)
+RGLRU_CASES = [RGLRU_MODEL, (2, 200, 128, "float32", 1e-5),
+               (3, 77, 100, "float32", 1e-5), (1, 130, 128, "bfloat16", 2e-2)]
+
+
+def flash_work(b, sq, sk, hq, hkv, d, causal, window, dtype):
+    """(bytes, FLOPs) the attention must move and do on these inputs:
+    q, k, v read once, o written once; 4*d FLOPs per unmasked (q, k)
+    pair (q.k and p.v)."""
+    q = np.arange(sq)[:, None]
+    k = np.arange(sk)[None, :]
+    ok = np.ones((sq, sk), bool)
+    if causal:
+        ok &= k <= q
+    if window is not None:
+        ok &= q - k < window
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * size
+    return nbytes, int(ok.sum()) * 4 * d * b * hq
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_model_kernels(device):
+    """Flash attention and the RG-LRU scan against their plain versions on
+    the card, at the model's shapes and at odd ones; times at the model's
+    shape (CUDA events), with SDPA on the same boolean causal+window mask
+    as the library time of the attention.  Returns the kernel-table
+    rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import (
+        BLOCK_K, BLOCK_Q, flash_attention_plain)
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_plain
+    gen = torch.Generator(device).manual_seed(SEED)
+    rows = {}
+    err_fa = 0.0
+    for case in FLASH_CASES:
+        b, sq, sk, hq, hkv, d, causal, window, dtype, tol = case
+        td = getattr(torch, dtype)
+        scale = 1.0 if case is FLASH_MODEL else d ** -0.5
+        q = torch.randn((b, hq, sq + (-sq) % BLOCK_Q, d), generator=gen,
+                        device=device)
+        if case is FLASH_MODEL:
+            q = q * d ** -0.5           # the model scales q before the kernel
+        q = q.to(td)
+        k, v = (torch.randn((b, hkv, sk + (-sk) % BLOCK_K, d), generator=gen,
+                            device=device).to(td) for _ in range(2))
+        kw = dict(causal=causal, window=window, scale=scale, seq_k=sk)
+        got = flash_attention_fwd(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        err = (got[:, :, :sq].float() - want[:, :, :sq].float()).abs().max()
+        err = float(err)
+        check(math.isfinite(err) and err < tol,
+              f"flash_attention != plain at {case}: {err}")
+        err_fa = max(err_fa, err)
+        line = (f"[kernels] flash_attention b={b} sq={sq} sk={sk} hq={hq} "
+                f"hkv={hkv} d={d} causal={causal} window={window} {dtype}: "
+                f"max |kernel - plain| {err:.3g} < {tol}")
+        if case is FLASH_MODEL:
+            nbytes, ops = flash_work(*case[:9])
+            bnd, by = bound(nbytes, ops, BF16_OPS_PER_S)
+            qp = torch.arange(q.shape[2], device=device)[:, None]
+            kp = torch.arange(k.shape[2], device=device)[None, :]
+            mask = (kp <= qp) & (qp - kp < window) & (kp < sk)
+            ke, ve = k.expand(-1, hq, -1, -1), v.expand(-1, hq, -1, -1)
+            sdpa = F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask,
+                                                  scale=scale)
+            sdpa_err = float((sdpa[:, :, :sq].float()
+                              - want[:, :, :sq].float()).abs().max())
+            rows["flash_attention"] = {
+                "ms": ms_per_call(lambda: flash_attention_fwd(q, k, v, **kw),
+                                  10, device),
+                "plain_ms": ms_per_call(
+                    lambda: flash_attention_plain(q, k, v, **kw), 3, device),
+                "library_ms": ms_per_call(
+                    lambda: F.scaled_dot_product_attention(
+                        q, ke, ve, attn_mask=mask, scale=scale), 10, device),
+                "bound_ms": bnd, "bound_by": by, "bytes": nbytes,
+                "ops": ops}
+            line += (f"; kernel {rows['flash_attention']['ms']:.4g} ms, plain "
+                     f"{rows['flash_attention']['plain_ms']:.4g} ms, SDPA "
+                     f"{rows['flash_attention']['library_ms']:.4g} ms "
+                     f"(|SDPA - plain| {sdpa_err:.3g}), bound {bnd:.4g} ms "
+                     f"by {by}")
+            del sdpa, mask, ke, ve
+        print(line, flush=True)
+        del q, k, v, got, want
+    err_rg = 0.0
+    for case in RGLRU_CASES:
+        b, s, w, dtype, tol = case
+        td = getattr(torch, dtype)
+        a = (torch.rand((b, s, w), generator=gen, device=device) * 0.299
+             + 0.7).to(td)
+        bb = (torch.randn((b, s, w), generator=gen, device=device)
+              * 0.1).to(td)
+        got, want = rglru_scan(a, bb), rglru_scan_plain(a, bb)
+        err = float((got.float() - want.float()).abs().max())
+        check(math.isfinite(err) and err < tol,
+              f"rglru_scan != plain at {case}: {err}")
+        err_rg = max(err_rg, err)
+        line = (f"[kernels] rglru_scan b={b} s={s} w={w} {dtype}: max "
+                f"|kernel - plain| {err:.3g} < {tol}")
+        if case is RGLRU_MODEL:
+            nbytes, ops = 3 * a.numel() * a.element_size(), 2 * a.numel()
+            bnd, by = bound(nbytes, ops, ALU_OPS_PER_S)
+            rows["rglru_scan"] = {
+                "ms": ms_per_call(lambda: rglru_scan(a, bb), 20, device),
+                "plain_ms": ms_per_call(lambda: rglru_scan_plain(a, bb), 2,
+                                        device),
+                "library_ms": None, "bound_ms": bnd, "bound_by": by,
+                "bytes": nbytes, "ops": ops}
+            line += (f"; kernel {rows['rglru_scan']['ms']:.4g} ms, plain "
+                     f"{rows['rglru_scan']['plain_ms']:.4g} ms, bound "
+                     f"{bnd:.4g} ms by {by}")
+        print(line, flush=True)
+        del a, bb, got, want
+    torch.cuda.empty_cache()
+    return rows, {"flash_attention": err_fa, "rglru_scan": err_rg}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: recurrentgemma-9b served at full width
+# ---------------------------------------------------------------------------
+ARCH = "recurrentgemma-9b"
+PREFILL_B, PREFILL_S = 2, 4096
+PARITY_TOKENS = 64
+LOGSOFTMAX_TOL, AGREE = 1.5, 0.95     # tests/test_decode.py, recurrent archs
+# The bound on max |d log-softmax| is held where tests/test_decode.py sets
+# it, in bf16 at smoke width, and in fp32 at full width.  In bf16 at full
+# width the gap is recorded and greedy agreement is held: the final norm
+# casts its inverse rms to bf16, so a one-ulp change of it between the
+# batched forward and the per-token decode scales a row of logits by
+# ~2^-8, and with random weights the largest logit (the input token's
+# own) is ~d_model, so one ulp moves it by ~16 here.  The gap with that
+# norm in fp32 is recorded beside it (tests/test_torch_models.py::
+# test_decode_gap_is_rounding shows the same at d_model 64 and 512).
+SERVE_B, SERVE_P, SERVE_N = 4, 8, 24  # launch/serve.py's defaults
+MODEL_PATH_KERNELS = {"prefill": {"flash_attention": 12, "rglru_scan": 26},
+                      "generate": {}}
+
+
+def logsoftmax_gap(a, b):
+    import torch
+    la, lb = torch.log_softmax(a, -1), torch.log_softmax(b, -1)
+    return (float((la - lb).abs().max()),
+            float((la.argmax(-1) == lb.argmax(-1)).float().mean()))
+
+
+def decode_gap(model, cfg, tokens, forward_logits):
+    """The first ``forward_logits.shape[1]`` tokens one by one through
+    the serve step, against the forward's logits: (max |d log-softmax|,
+    greedy agreement)."""
+    import torch
+    from repro_torch.train import make_serve_step
+    b, n = forward_logits.shape[:2]
+    step, caches = make_serve_step(model, cfg), model.init_caches(b, n)
+    outs = []
+    for i in range(n):
+        lg, caches = step(tokens[:, i:i + 1], caches, i)
+        outs.append(lg)
+    return logsoftmax_gap(torch.cat(outs, 1), forward_logits)
+
+
+def check_launches(path: str, counts: dict) -> None:
+    want = {k: MODEL_PATH_KERNELS[path].get(k, 0) for k in counts}
+    check(counts == want, f"{path}: launches {counts}, expected {want}")
+
+
+def phase_smoke_model(device):
+    """recurrentgemma-smoke (S=80 > window 32) on the card, through the
+    kernels, against the same weights on the CPU, through the plain
+    versions."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import CausalLM, make_model
+    from repro_torch.train import make_prefill_step
+    cfg = get_config(ARCH, smoke=True)
+    model = make_model(cfg, device=device, seed=SEED)
+    cpu = CausalLM(cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab, (2, 80), device=device,
+                         generator=torch.Generator(device).manual_seed(SEED))
+    fwd = make_prefill_step(model, cfg)(toks)
+    want = make_prefill_step(cpu, cfg)(toks.cpu())
+    gap, agree = logsoftmax_gap(fwd.cpu(), want)
+    check(gap < LOGSOFTMAX_TOL and agree > AGREE,
+          f"smoke model: card vs CPU plain gap {gap}, agreement {agree}")
+    dgap, dagree = decode_gap(model, cfg, toks, fwd)
+    check(dgap < LOGSOFTMAX_TOL and dagree > AGREE,
+          f"smoke model: decode vs forward gap {dgap}, agreement {dagree}")
+    print(f"[model] {cfg.name} B=2 S=80 (window 32), bf16: card (kernels) vs "
+          f"CPU (plain versions) max |d log-softmax| {gap:.4g}, greedy "
+          f"agreement {agree:.4g}; decode vs forward on the card "
+          f"{dgap:.4g}, {dagree:.4g} (bounds < {LOGSOFTMAX_TOL}, "
+          f"> {AGREE})", flush=True)
+
+
+def profile_call(fn):
+    """Device time by kernel over one warm call of ``fn`` (torch.profiler)
+    against its wall time; returns a summary dict, or the reason it could
+    not be measured."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for ev in prof.key_averages():     # device kernels only
+            if getattr(ev, "device_type", None) != DeviceType.CUDA:
+                continue
+            dev_us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+            if dev_us > 0:
+                rows.append((dev_us / 1e3, ev.count, ev.key[:60]))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        return {"wall_ms": wall, "device_busy_ms": busy,
+                "idle_share": 1 - busy / wall if wall else None,
+                "device_kernels": sum(r[1] for r in rows),
+                "top": [{"ms": r[0], "calls": r[1], "name": r[2]}
+                        for r in rows[:12]]}
+    except Exception as exc:   # a measurement aid: report, never fail
+        return {"not_measured": f"{type(exc).__name__}: {exc}"}
+
+
+def phase_model(device):
+    """recurrentgemma-9b at full width and depth, weights from a seeded
+    generator on the card: the prefill step on B=2 x S=4096 (each
+    attention layer launches flash_attention once, each recurrent layer
+    rglru_scan once), decode-vs-forward parity over the first 64 tokens
+    (bounded in fp32, recorded in bf16: see LOGSOFTMAX_TOL), and
+    Engine.generate with launch/serve.py's defaults (plain decode, no
+    kernel).  Each path runs with the launch counts set to 0 just before
+    it and read just after.  Returns the per-path launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import COMPUTE_DTYPE, make_model
+    from repro_torch.serving import Engine
+    from repro_torch.train import make_prefill_step, make_serve_step
+    cfg = get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = make_model(cfg, device=device, seed=SEED)
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = [cfg.pattern[j % len(cfg.pattern)].mixer
+             for j in range(cfg.n_layers)]
+    check(kinds.count("attn") == 12 and kinds.count("rglru") == 26,
+          f"unexpected layer kinds {kinds}")
+    gen = torch.Generator(device).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen, device=device)
+    prefill = make_prefill_step(model, cfg)
+
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = prefill(tokens)
+    torch.cuda.synchronize(device)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"prefill": dict(_lib.launch_counts)}
+    check_launches("prefill", launches["prefill"])
+    check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, cfg.padded_vocab)
+          and logits.dtype == torch.float32, f"logits {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    head = logits[:, :PARITY_TOKENS].clone()
+    del logits
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        prefill(tokens)
+        torch.cuda.synchronize(device)
+        warm.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_call(lambda: prefill(tokens))
+    print(f"[model] {cfg.name}: {n_params} parameters (fp32) initialised on "
+          f"the card in {init_s:.2f} s; prefill B={PREFILL_B} x "
+          f"S={PREFILL_S}: {first_ms:.1f} ms first, {warm} ms warm; launches "
+          f"{json.dumps(launches['prefill'])}; logits finite", flush=True)
+    print(f"[profile] prefill {json.dumps(prof)}", flush=True)
+
+    gap, agree = decode_gap(model, cfg, tokens, head)
+    check(agree > AGREE, f"decode vs forward (bf16): greedy agreement "
+          f"{agree}, max |d log-softmax| {gap}")
+    logit_std, logit_max = float(head.std()), float(head.max())
+    norm = model.final_norm
+
+    def norm_fp32(x):
+        var = x.float().square().mean(-1, keepdim=True)
+        return x.float() * torch.rsqrt(var + norm.eps) * (1.0 + norm.scale)
+    norm.forward = norm_fp32
+    try:
+        gap_norm, _ = decode_gap(model, cfg, tokens,
+                                 prefill(tokens[:, :PARITY_TOKENS]))
+    finally:
+        del norm.forward
+    model.compute_dtype = torch.float32
+    try:
+        head32 = prefill(tokens[:, :PARITY_TOKENS])
+        gap32, agree32 = decode_gap(model, cfg, tokens, head32)
+    finally:
+        model.compute_dtype = COMPUTE_DTYPE
+    check(gap32 < LOGSOFTMAX_TOL and agree32 > AGREE,
+          f"decode vs forward (fp32): max |d log-softmax| {gap32}, "
+          f"agreement {agree32}")
+    print(f"[model] decode vs forward over the first {PARITY_TOKENS} tokens: "
+          f"fp32 max |d log-softmax| {gap32:.4g} < {LOGSOFTMAX_TOL}, greedy "
+          f"agreement {agree32:.4g} > {AGREE}; bf16 (served) max |d "
+          f"log-softmax| {gap:.4g} (largest logit {logit_max:.4g}, logits' "
+          f"std {logit_std:.4g}; {gap_norm:.4g} with the final norm in "
+          f"fp32), greedy agreement {agree:.4g} > {AGREE}", flush=True)
+    del head, head32
+
+    eng = Engine(model, cfg, max_len=SERVE_P + SERVE_N + 8,
+                 track_transfers=False)
+    prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_P), generator=gen,
+                           device=device)
+    eng.generate(prompt, 2)                                # warm-up
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompt, SERVE_N)
+    torch.cuda.synchronize(device)
+    gen_s = time.perf_counter() - t0
+    launches["generate"] = dict(_lib.launch_counts)
+    check_launches("generate", launches["generate"])
+    check(tuple(out.shape) == (SERVE_B, SERVE_P + SERVE_N)
+          and torch.equal(out[:, :SERVE_P], prompt)
+          and bool(((out >= 0) & (out < cfg.vocab)).all()),
+          f"generate returned {tuple(out.shape)}")
+    steps = SERVE_P + SERVE_N - 1
+    peak = torch.cuda.max_memory_allocated(device)
+    caches = model.init_caches(SERVE_B, SERVE_P + SERVE_N + 8)
+    serve = make_serve_step(model, cfg)
+    serve(prompt[:, :1], caches, 0)
+    prof_dec = profile_call(lambda: serve(prompt[:, 1:2], caches, 1))
+    print(f"[profile] decode step {json.dumps(prof_dec)}", flush=True)
+    print(f"[model] Engine.generate: {SERVE_B} requests, prompt {SERVE_P}, "
+          f"{SERVE_N} new tokens in {gen_s * 1e3:.1f} ms "
+          f"({gen_s * 1e3 / steps:.2f} ms per decode step, {steps} steps); "
+          f"launches {json.dumps(launches['generate'])}; peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    del model, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -550,6 +940,12 @@ KERNEL_META = {
     "fused_prepare": ("src/repro_torch/kernels/slot_alloc/csrc/"
                       "fused_prepare.cu",
                       "src/repro/kernels/slot_alloc/fused.py:213"),
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_attention.cu",
+                        "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:75"),
+    "rglru_scan": ("src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan/rglru_scan.py:46"),
 }
 
 
@@ -569,10 +965,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import PAPER_MESH
-    from repro_torch.kernels.slot_alloc import _lib
+    from repro_torch.kernels import _lib
     device = torch.device("cuda", 0)
     print(f"[device] {torch.cuda.get_device_name(0)} | torch "
-          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+          f"{torch.__version__} cuda {torch.version.cuda} | tf32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "fp32 matmuls must run in full fp32 (plain versions, logits)")
+    t_start = time.perf_counter()
 
     secs = _lib.build()
     regs = {k: [ln.strip() for ln in v.splitlines()
@@ -582,6 +982,7 @@ def main() -> int:
           f"{json.dumps(regs)}", flush=True)
 
     rows, max_err = phase_kernels(PAPER_MESH, device)
+    model_rows, model_err = phase_model_kernels(device)
 
     chunks = make_stream(PAPER_MESH, N_TRANSFERS, SEED, N_FLUSHES)
     stats, launches, keys = phase_slice(PAPER_MESH, device, chunks)
@@ -597,29 +998,38 @@ def main() -> int:
     # launch 1-request waves, which take no longer).
     share = {}
     for kind, counts in launches.items():
-        kern_ms = sum(v * rows[(k, WAVE)]["ms"] for k, v in counts.items())
+        kern_ms = sum(v * rows[(k, WAVE)]["ms"] for k, v in counts.items()
+                      if v)
         share[kind] = (f"{kern_ms:.3f} ms of "
                        f"{stats[kind]['seconds'] * 1e3:.1f} ms "
                        f"({100 * kern_ms / (stats[kind]['seconds'] * 1e3):.2f} %)")
     print(f"[where] kernel time <= {json.dumps(share)}", flush=True)
+
+    phase_smoke_model(device)
+    launches.update(phase_model(device))
+
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
-        row = rows[(name, WAVE)]
+        row = model_rows.get(name) or rows[(name, WAVE)]
         by_path = {kind: counts[name] for kind, counts in launches.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max_err[name], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None})
-        if not any(name in own for own in PATH_KERNELS.values()):
+            "max_abs_err": model_err.get(name, max_err.get(name)),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms")})
+        if not any(name in own for own in PATH_KERNELS.values()) \
+                and name not in model_rows:
             kernels[-1]["note"] = ("launches on no path: the main path "
                                    "scores inside fused_prepare "
                                    "(nom::slot_cost), the split pipeline "
                                    "on the host, as the reference does")
-    print(smi, flush=True)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s after the start of "
+          f"the build ({smi})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

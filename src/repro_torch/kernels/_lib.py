@@ -1,8 +1,8 @@
-"""Build, load and launch the slot-allocator CUDA kernels.
+"""Build, load and launch the port's CUDA kernels (every kernel package).
 
-Each ``csrc/<kernel>.cu`` compiles with ``nvcc`` into its own shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds), named after a hash of its sources and flags, under
+Each ``<package>/csrc/<kernel>.cu`` compiles with ``nvcc`` into its own
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), named after a hash of its sources and flags, under
 ``repro_torch/_build/`` (listed in ``.gitignore``).  The first launch
 builds whatever is missing — every source in parallel, one ``nvcc``
 process each — and loads the libraries with ``ctypes``.  Nothing is
@@ -11,11 +11,13 @@ CPU tensors.
 
 Every launch goes through :func:`launch`, which checks the error code
 the C entry point returns (``cudaGetLastError()`` right after the
-launch) and counts the launch in :data:`launch_counts`.
+launch) and counts the launch in :data:`launch_counts`, one counter per
+kernel of :data:`KERNELS`.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -25,21 +27,38 @@ from pathlib import Path
 
 import torch
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-KERNELS = ("wavefront_search", "slot_score", "fused_prepare")
+PKG = Path(__file__).resolve().parent
+BUILD_DIR = PKG.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    package: str                 # kernels/<package>/csrc/<name>.cu
+    headers: tuple[str, ...]     # csrc headers the source includes
+    argtypes: tuple              # C entry point arguments, stream last
+
+
+KERNELS = {
     # occ, srcs, dsts, init, out, batch, X, Y, Z, n_slots, threads, stream
-    "wavefront_search": [_P] * 5 + [_I] * 6 + [_P],
+    "wavefront_search": Kernel("slot_alloc", ("slot_alloc.cuh",),
+                               (_P,) * 5 + (_I,) * 6 + (_P,)),
     # avail, dists, t_ready, cost, batch, n_slots, stream
-    "slot_score": [_P] * 4 + [_I] * 2 + [_P],
+    "slot_score": Kernel("slot_alloc", ("slot_alloc.cuh",),
+                         (_P,) * 4 + (_I,) * 2 + (_P,)),
     # occ, srcs, dsts, t_ready, ints, flags, vecs, batch, X, Y, Z,
     # n_slots, threads, stream
-    "fused_prepare": [_P] * 7 + [_I] * 6 + [_P],
+    "fused_prepare": Kernel("slot_alloc", ("slot_alloc.cuh",),
+                            (_P,) * 7 + (_I,) * 6 + (_P,)),
+    # q, k, v, o, batch, hq, hkv, sq, sk, seq_k, head_dim, causal,
+    # window (0 = none), bf16, scale, stream
+    "flash_attention": Kernel("flash_attention", (),
+                              (_P,) * 4 + (_I,) * 10 + (_F, _P)),
+    # a, b, y, batch, seq, width, bf16, stream
+    "rglru_scan": Kernel("rglru_scan", (), (_P,) * 3 + (_I,) * 4 + (_P,)),
 }
 
 # Launches per kernel since the last reset (only real kernel launches:
@@ -61,20 +80,25 @@ def _nvcc() -> str:
     cand = Path("/usr/local/cuda/bin/nvcc")
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the slot-allocator CUDA kernels are "
-                       "built from src/repro_torch/kernels/slot_alloc/csrc "
-                       "with the CUDA toolkit on the machine with the GPU")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "src/repro_torch/kernels/*/csrc with the CUDA toolkit "
+                       "on the machine with the GPU")
+
+
+def source(name: str) -> Path:
+    return PKG / KERNELS[name].package / "csrc" / f"{name}.cu"
 
 
 def _lib_path(name: str) -> Path:
+    csrc = source(name).parent
     h = hashlib.sha256()
-    for part in (CSRC / "slot_alloc.cuh", CSRC / f"{name}.cu"):
+    for part in (*(csrc / f for f in KERNELS[name].headers), source(name)):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=KERNELS) -> float:
+def build(names=tuple(KERNELS)) -> float:
     """Compile every missing kernel library in parallel; returns the
     seconds spent.  Raises with nvcc's output when a build fails."""
     t0 = time.perf_counter()
@@ -85,7 +109,7 @@ def build(names=KERNELS) -> float:
         procs = []
         for name, path in todo:
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(name))]
             procs.append((name, path, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -102,13 +126,14 @@ def build(names=KERNELS) -> float:
     return time.perf_counter() - t0
 
 
-def _library(name: str) -> ctypes.CDLL:
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built first if missing)."""
     lib = _libs.get(name)
     if lib is None:
         build((name,))
         lib = ctypes.CDLL(str(_lib_path(name)))
         fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = list(KERNELS[name].argtypes)
         fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
@@ -120,9 +145,9 @@ def _library(name: str) -> ctypes.CDLL:
 def launch(name: str, device: torch.device, *args) -> None:
     """Launch kernel ``name`` on ``device``'s current stream: ``args``
     are the C entry point's arguments before the stream (tensors are
-    passed as device pointers, ints as C ints).  Raises on a refused
-    launch; counts the launch otherwise."""
-    lib = _library(name)
+    passed as device pointers, numbers as the entry point declares
+    them).  Raises on a refused launch; counts the launch otherwise."""
+    lib = library(name)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(lib, f"{name}_launch")(*cargs, stream)
@@ -131,9 +156,3 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({msg})")
     launch_counts[name] += 1
-
-
-def cta_threads(n_nodes: int) -> int:
-    """Threads per CTA for the one-CTA-per-request kernels: one per node
-    up to 256, rounded up to whole warps."""
-    return min(256, -(-n_nodes // 32) * 32)

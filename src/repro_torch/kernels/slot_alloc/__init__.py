@@ -1,5 +1,5 @@
 from . import fused, ops, ref, slot_alloc
-from ._lib import launch_counts, reset_launch_counts
+from .._lib import launch_counts, reset_launch_counts
 from .fused import (fused_prepare, fused_prepare_packed, fused_prepare_plain,
                     fused_prepare_start, fused_prepare_wait, slot_score,
                     slot_score_plain)

@@ -36,8 +36,9 @@ from repro_torch.core.bitvec import (as_i32_bits, as_i64, full_mask,
 from repro_torch.core.topology import PORT_LOCAL, Mesh3D
 from repro_torch.device import resolve_device
 
-from . import _lib
-from .slot_alloc import _check_mesh, _geometry, wavefront_search_plain
+from .. import _lib
+from .slot_alloc import (_check_mesh, _geometry, cta_threads,
+                         wavefront_search_plain)
 
 __all__ = ["FAR32", "FusedPrepare", "t_ready_limit", "fused_prepare",
            "fused_prepare_packed", "fused_prepare_plain",
@@ -179,7 +180,7 @@ def fused_prepare_packed(occ: torch.Tensor, srcs: torch.Tensor,
                 dsts.to(dev, torch.int32).contiguous(),
                 t_readys.to(dev, torch.int32).contiguous(), ints, flags, vecs,
                 B, mesh.X, mesh.Y, mesh.Z, n_slots,
-                _lib.cta_threads(mesh.n_nodes))
+                cta_threads(mesh.n_nodes))
     return ints, flags, vecs
 
 

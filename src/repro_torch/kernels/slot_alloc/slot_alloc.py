@@ -18,11 +18,17 @@ import torch
 from repro_torch.core.bitvec import as_i32_bits, as_i64, full_mask, rotr
 from repro_torch.core.topology import Mesh3D
 
-from . import _lib
+from .. import _lib
 
 # 16 bytes of shared memory per node (the vector + three occupancy
 # columns) must fit the default 48 KB dynamic shared-memory budget.
 MAX_NODES = 3072
+
+
+def cta_threads(n_nodes: int) -> int:
+    """Threads per CTA for the one-CTA-per-request kernels: one per node
+    up to 256, rounded up to whole warps."""
+    return min(256, -(-n_nodes // 32) * 32)
 
 
 def _check_mesh(mesh: Mesh3D, n_slots: int) -> None:
@@ -109,5 +115,5 @@ def wavefront_search_packed(occ: torch.Tensor, srcs: torch.Tensor,
     init = as_i32_bits(init.to(dev)).contiguous()
     _lib.launch("wavefront_search", dev, occ.contiguous(), srcs, dsts, init,
                 out, B, mesh.X, mesh.Y, mesh.Z, n_slots,
-                _lib.cta_threads(mesh.n_nodes))
+                cta_threads(mesh.n_nodes))
     return out

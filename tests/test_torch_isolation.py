@@ -19,7 +19,12 @@ def test_import_leaves_jax_and_repro_out():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.slot_alloc\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.rglru_scan, repro_torch.configs\n"
+        "import repro_torch.models, repro_torch.train, repro_torch.serving\n"
+        "import repro_torch.launch.serve\n"
         "from repro_torch.core import NomFabric, TdmAllocatorLight\n"
+        "from repro_torch.models import make_model, params_from_reference\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('LEAKED', bad)\n")

@@ -17,7 +17,7 @@ from hypothesis import given, settings, strategies as st
 from repro_torch.core.bitvec import packed_numpy, packed_tensor
 from repro_torch.core.slot_alloc import wavefront_search
 from repro_torch.core.topology import Mesh3D, PORT_LOCAL
-from repro_torch.kernels.slot_alloc import _lib
+from repro_torch.kernels import _lib
 from repro_torch.kernels.slot_alloc import fused as kf
 from repro_torch.kernels.slot_alloc import ops as kops
 from repro_torch.kernels.slot_alloc import ref as pref
@@ -279,4 +279,5 @@ def test_cuda_kernels_match_plain(cuda_device, n_slots):
         np.testing.assert_array_equal(packed_numpy(kern[2]),
                                       packed_numpy(plain[2]))
         assert {k: _lib.launch_counts[k] - before[k] for k in before} == \
-            {"wavefront_search": 1, "slot_score": 1, "fused_prepare": 1}
+            {"wavefront_search": 1, "slot_score": 1, "fused_prepare": 1,
+             "flash_attention": 0, "rglru_scan": 0}
