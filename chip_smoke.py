@@ -565,6 +565,10 @@ FLASH_CASES = [
     (2, 100, 150, 4, 2, 128, False, None, "float32", 2e-5),
 ]
 # (b, s, w, dtype, tol): the model's shape, then odd ones.
+# At the model's shape an output row averages ~2048 keys, so a typical |o|
+# is ~0.036 and 2e-2 is about half of it: there the kernel is also held at
+# a bound set from its reading on the H100 (1.95e-3).
+FLASH_MODEL_TOL = 5e-3
 RGLRU_MODEL = (2, 4096, 4096, "float32", 1e-5)
 RGLRU_CASES = [RGLRU_MODEL, (2, 200, 128, "float32", 1e-5),
                (3, 77, 100, "float32", 1e-5), (1, 130, 128, "bfloat16", 2e-2)]
@@ -631,6 +635,10 @@ def phase_model_kernels(device):
                 f"hkv={hkv} d={d} causal={causal} window={window} {dtype}: "
                 f"max |kernel - plain| {err:.3g} < {tol}")
         if case is FLASH_MODEL:
+            check(err < FLASH_MODEL_TOL, f"flash_attention != plain at the "
+                  f"model's shape: {err} >= {FLASH_MODEL_TOL}")
+            line += (f" and < {FLASH_MODEL_TOL} (mean |plain| "
+                     f"{float(want[:, :, :sq].float().abs().mean()):.3g})")
             nbytes, ops = flash_work(*case[:9])
             bnd, by = bound(nbytes, ops, BF16_OPS_PER_S)
             qp = torch.arange(q.shape[2], device=device)[:, None]
@@ -699,15 +707,20 @@ ARCH = "recurrentgemma-9b"
 PREFILL_B, PREFILL_S = 2, 4096
 PARITY_TOKENS = 64
 LOGSOFTMAX_TOL, AGREE = 1.5, 0.95     # tests/test_decode.py, recurrent archs
-# The bound on max |d log-softmax| is held where tests/test_decode.py sets
-# it, in bf16 at smoke width, and in fp32 at full width.  In bf16 at full
-# width the gap is recorded and greedy agreement is held: the final norm
-# casts its inverse rms to bf16, so a one-ulp change of it between the
-# batched forward and the per-token decode scales a row of logits by
-# ~2^-8, and with random weights the largest logit (the input token's
-# own) is ~d_model, so one ulp moves it by ~16 here.  The gap with that
-# norm in fp32 is recorded beside it (tests/test_torch_models.py::
-# test_decode_gap_is_rounding shows the same at d_model 64 and 512).
+# Decode vs forward at full width: in fp32 max |d log-softmax| is held at
+# a bound set from its reading on the H100 (0.0122).  In bf16 the gap is
+# recorded and greedy agreement is held.  With random tied weights the
+# largest logit is ~d_model, so any last-bit difference between the
+# batched forward and the per-token decode moves a row's log-softmax by
+# ~d_model / 256: the attention kernel's rounding (it casts the
+# unnormalised probabilities to bf16 before P.V, as the TPU kernel does,
+# where the einsum decode casts the normalised ones), and matmuls that
+# round differently at the forward's and the decode's shapes.  The gap of
+# a forward through einsum attention, the reference's own prefill
+# arithmetic, is recorded beside it; the reference's own gap with its TPU
+# kernel is shown at d_model 64 and 512 by tests/test_torch_models.py::
+# test_decode_gap_is_rounding.
+FP32_GAP_TOL = 0.1
 SERVE_B, SERVE_P, SERVE_N = 4, 8, 24  # launch/serve.py's defaults
 MODEL_PATH_KERNELS = {"prefill": {"flash_attention": 12, "rglru_scan": 26},
                       "generate": {}}
@@ -718,6 +731,25 @@ def logsoftmax_gap(a, b):
     la, lb = torch.log_softmax(a, -1), torch.log_softmax(b, -1)
     return (float((la - lb).abs().max()),
             float((la.argmax(-1) == lb.argmax(-1)).float().mean()))
+
+
+def einsum_attention(q, k, v, *, causal, window, scale):
+    """Causal (windowed) attention in the arithmetic of the reference's
+    prefill and of the port's decode: fp32 logits, normalised
+    probabilities cast to v's type, then P.V.  q (B, S, Hq, D), k/v
+    (B, S, Hkv, D), q already scaled."""
+    import torch
+    assert causal and scale == 1.0
+    b, s, hq, d = q.shape
+    qg = q.reshape(b, s, k.shape[2], hq // k.shape[2], d)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, k).float()
+    i = torch.arange(s, device=q.device)
+    ok = i[None, :] <= i[:, None]
+    if window is not None:
+        ok &= i[:, None] - i[None, :] < window
+    probs = torch.softmax(logits.masked_fill(~ok, float("-inf")), -1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype), v)
+    return out.reshape(b, s, hq, d)
 
 
 def decode_gap(model, cfg, tokens, forward_logits):
@@ -776,13 +808,22 @@ def profile_call(fn):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    # Only the profiler's own failures are reported as not measured; a
+    # failure of ``fn`` fails the run.
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as exc:
+        return {"not_measured": f"{type(exc).__name__}: {exc}"}
+    t0 = time.perf_counter()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.stop()
+    try:
         rows = []
         for ev in prof.key_averages():     # device kernels only
             if getattr(ev, "device_type", None) != DeviceType.CUDA:
@@ -798,7 +839,7 @@ def profile_call(fn):
                 "device_kernels": sum(r[1] for r in rows),
                 "top": [{"ms": r[0], "calls": r[1], "name": r[2]}
                         for r in rows[:12]]}
-    except Exception as exc:   # a measurement aid: report, never fail
+    except Exception as exc:
         return {"not_measured": f"{type(exc).__name__}: {exc}"}
 
 
@@ -807,14 +848,15 @@ def phase_model(device):
     generator on the card: the prefill step on B=2 x S=4096 (each
     attention layer launches flash_attention once, each recurrent layer
     rglru_scan once), decode-vs-forward parity over the first 64 tokens
-    (bounded in fp32, recorded in bf16: see LOGSOFTMAX_TOL), and
+    (bounded in fp32, recorded in bf16: see FP32_GAP_TOL), and
     Engine.generate with launch/serve.py's defaults (plain decode, no
     kernel).  Each path runs with the launch counts set to 0 just before
     it and read just after.  Returns the per-path launches."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
-    from repro_torch.models import COMPUTE_DTYPE, make_model
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import COMPUTE_DTYPE, attention, make_model
     from repro_torch.serving import Engine
     from repro_torch.train import make_prefill_step, make_serve_step
     cfg = get_config(ARCH)
@@ -862,32 +904,28 @@ def phase_model(device):
     check(agree > AGREE, f"decode vs forward (bf16): greedy agreement "
           f"{agree}, max |d log-softmax| {gap}")
     logit_std, logit_max = float(head.std()), float(head.max())
-    norm = model.final_norm
-
-    def norm_fp32(x):
-        var = x.float().square().mean(-1, keepdim=True)
-        return x.float() * torch.rsqrt(var + norm.eps) * (1.0 + norm.scale)
-    norm.forward = norm_fp32
+    attention.flash_attention = einsum_attention
     try:
-        gap_norm, _ = decode_gap(model, cfg, tokens,
-                                 prefill(tokens[:, :PARITY_TOKENS]))
+        gap_einsum, _ = decode_gap(model, cfg, tokens,
+                                   prefill(tokens[:, :PARITY_TOKENS]))
     finally:
-        del norm.forward
+        attention.flash_attention = flash_attention
     model.compute_dtype = torch.float32
     try:
         head32 = prefill(tokens[:, :PARITY_TOKENS])
         gap32, agree32 = decode_gap(model, cfg, tokens, head32)
     finally:
         model.compute_dtype = COMPUTE_DTYPE
-    check(gap32 < LOGSOFTMAX_TOL and agree32 > AGREE,
+    check(gap32 < FP32_GAP_TOL and agree32 > AGREE,
           f"decode vs forward (fp32): max |d log-softmax| {gap32}, "
           f"agreement {agree32}")
     print(f"[model] decode vs forward over the first {PARITY_TOKENS} tokens: "
-          f"fp32 max |d log-softmax| {gap32:.4g} < {LOGSOFTMAX_TOL}, greedy "
+          f"fp32 max |d log-softmax| {gap32:.4g} < {FP32_GAP_TOL}, greedy "
           f"agreement {agree32:.4g} > {AGREE}; bf16 (served) max |d "
           f"log-softmax| {gap:.4g} (largest logit {logit_max:.4g}, logits' "
-          f"std {logit_std:.4g}; {gap_norm:.4g} with the final norm in "
-          f"fp32), greedy agreement {agree:.4g} > {AGREE}", flush=True)
+          f"std {logit_std:.4g}; {gap_einsum:.4g} with the forward's "
+          f"attention in einsums), greedy agreement {agree:.4g} > {AGREE}",
+          flush=True)
     del head, head32
 
     eng = Engine(model, cfg, max_len=SERVE_P + SERVE_N + 8,

@@ -9,9 +9,10 @@ attention): one call, with ``scale=1.0`` because q is scaled in
 ``_qkv``.  Its masks come from the kernel's block offsets, so the
 reference's ``_mask`` has no counterpart here.  Decode stays plain
 PyTorch, as the reference's einsum decode is outside any TPU kernel.
-Not in this slice (raise ``NotImplementedError``): cross-attention,
-prefix-LM, QKV bias, QK norm, and logit soft-capping on prefill (the TPU
-kernel has none).
+Not in this slice: cross-attention, QKV bias and QK norm (the config
+has no field for them; ``models.lm.check_supported`` refuses configs
+that need them), prefix-LM and logit soft-capping on prefill (raise
+``NotImplementedError``: the TPU kernel has neither).
 """
 from __future__ import annotations
 
@@ -36,13 +37,9 @@ class AttentionConfig:
     head_dim: int
     rope_theta: float = 10000.0
     use_rope: bool = True
-    qkv_bias: bool = False
-    qk_norm: bool = False
     logit_softcap: float | None = None
     window: int | None = None          # sliding-window size (None = global)
     causal: bool = True                # False: encoder (bidirectional)
-    cross: bool = False                # cross-attention (enc-dec decoder)
-    query_scale: float | None = None   # default 1/sqrt(head_dim)
 
     @property
     def groups(self) -> int:
@@ -52,11 +49,6 @@ class AttentionConfig:
 class Attention(nn.Module):
     def __init__(self, cfg: AttentionConfig, device=None):
         super().__init__()
-        for name in ("cross", "qkv_bias", "qk_norm"):
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"Attention({name}=True) is not ported yet (ROADMAP "
-                    "queue 1: the models of the later slices)")
         self.cfg = c = cfg
         self.wq = param((c.d_model, c.n_heads, c.head_dim), device)
         self.wk = param((c.d_model, c.n_kv, c.head_dim), device)
@@ -75,8 +67,8 @@ class Attention(nn.Module):
         if c.use_rope:
             q = apply_rope(q, positions, c.rope_theta)
             k = apply_rope(k, positions, c.rope_theta)
-        scale = c.query_scale or (1.0 / np.sqrt(c.head_dim))
-        return q * torch.tensor(scale, dtype=q.dtype), k, v
+        scale = torch.tensor(1.0 / np.sqrt(c.head_dim), dtype=q.dtype)
+        return q * scale, k, v
 
     def forward(self, x: torch.Tensor, *, prefix_len=None) -> torch.Tensor:
         """Prefill self-attention over positions 0..S-1.  x: (B, S, D)."""

@@ -30,8 +30,7 @@ def make_mixer(cfg: ArchConfig, kind: LayerKind, device=None):
             d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             head_dim=cfg.resolved_head_dim,
             rope_theta=kind.rope_theta or cfg.rope_theta,
-            use_rope=cfg.use_rope, qkv_bias=cfg.qkv_bias,
-            qk_norm=cfg.qk_norm, logit_softcap=cfg.logit_softcap,
+            use_rope=cfg.use_rope, logit_softcap=cfg.logit_softcap,
             window=kind.window), device)
     if kind.mixer == "rglru":
         return RecurrentBlock(RGLRUConfig(d_model=cfg.d_model,

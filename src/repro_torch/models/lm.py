@@ -2,9 +2,9 @@
 ``CausalLM`` with its decode step.
 
 Not in this slice: ``EncDecLM`` (whisper), prefix-LM inputs (VLM), MoE
-and SSM layers, LayerNorm, sandwich norms and untied heads;
-:func:`make_model` raises ``NotImplementedError`` for configs that need
-them.
+and SSM layers, QKV bias, QK norm, LayerNorm, sandwich norms and untied
+heads; ``CausalLM`` and :func:`make_model` raise ``NotImplementedError``
+for configs that need them.
 """
 from __future__ import annotations
 
@@ -20,13 +20,13 @@ from .common import COMPUTE_DTYPE, Embed
 
 class CausalLM(nn.Module):
     """``compute_dtype`` (bf16, the reference's policy) is the dtype of
-    the activations and caches; fp32 runs the same model with every
-    rounding of the bf16 path removed."""
+    the activations and caches; setting it to fp32 runs the same model
+    with every rounding of the bf16 path removed."""
 
-    def __init__(self, cfg: ArchConfig, device=None,
-                 compute_dtype: torch.dtype = COMPUTE_DTYPE):
+    def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        self.cfg, self.compute_dtype = cfg, compute_dtype
+        check_supported(cfg)
+        self.cfg, self.compute_dtype = cfg, COMPUTE_DTYPE
         self.embed = Embed(cfg.padded_vocab, cfg.d_model,
                            scale_by_sqrt_dim=cfg.scale_embed_sqrt_d,
                            device=device)
@@ -69,6 +69,8 @@ def check_supported(cfg: ArchConfig) -> None:
         missing.append("LayerNorm / sandwich norms")
     if not cfg.tie_embeddings:
         missing.append("untied LM head")
+    if cfg.qkv_bias or cfg.qk_norm:
+        missing.append("QKV bias / QK norm")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {', '.join(sorted(set(missing)))} "
@@ -79,7 +81,6 @@ def make_model(cfg: ArchConfig, *, device="cuda", seed: int = 0
                ) -> CausalLM:
     """The port's model of ``cfg`` on ``device``, its weights drawn from a
     ``torch.Generator`` on that device seeded with ``seed``."""
-    check_supported(cfg)
     dev = resolve_device(device)
     model = CausalLM(cfg, dev)
     model.reset_parameters(torch.Generator(dev).manual_seed(seed))

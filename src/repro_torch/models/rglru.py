@@ -32,7 +32,6 @@ class RGLRUConfig:
     d_model: int
     lru_width: int | None = None
     conv_width: int = 4
-    n_heads: int = 1
 
     @property
     def width(self) -> int:

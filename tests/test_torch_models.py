@@ -35,6 +35,13 @@ LOGSOFTMAX_TOL = 1.5      # max |d log-softmax|, bf16 (measured 0.38-0.71)
 AGREE = 0.95              # greedy agreement, as tests/test_decode.py
 
 
+def DECODE_GAP_MARGIN(ref_gap):
+    """How far the port's bf16 decode-vs-forward gap may lie from the
+    reference's own (with its TPU kernel) at the same width: measured
+    0.561 against 0.512 at d_model 64, 3.08 against 3.37 at 512."""
+    return 0.25 * ref_gap + 0.25
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The JAX package (CPU) and a seeded ``recurrentgemma-smoke``."""
@@ -368,15 +375,17 @@ def test_make_model_seeds_and_refuses_unported_configs():
                 dataclasses.replace(cfg, pattern=(dataclasses.replace(
                     k, mixer="ssm"),)),
                 dataclasses.replace(cfg, pattern=(dataclasses.replace(
-                    k, ffn="moe"),))):
+                    k, ffn="moe"),)),
+                dataclasses.replace(cfg, qkv_bias=True),
+                dataclasses.replace(cfg, qk_norm=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_model(bad, device="cpu")
+        with pytest.raises(NotImplementedError, match="not ported"):
+            CausalLM(bad, "cpu")
 
 
 def test_attention_refuses_what_the_kernel_lacks():
     kw = dict(d_model=64, n_heads=4, n_kv=1, head_dim=16)
-    with pytest.raises(NotImplementedError):
-        Attention(AttentionConfig(cross=True, **kw), "cpu")
     mod = Attention(AttentionConfig(logit_softcap=30.0, **kw), "cpu")
     with pytest.raises(NotImplementedError, match="soft-capping"):
         mod(torch.zeros((1, 4, 64), dtype=torch.bfloat16))
@@ -386,20 +395,24 @@ def test_attention_refuses_what_the_kernel_lacks():
 
 
 @pytest.mark.parametrize("d_model", [64, 512])
-def test_decode_gap_is_rounding(jx, d_model):
-    """In fp32 the port's decode reproduces its forward (< 1e-3); in bf16
-    the gap between the two grows with width and stays the size of the
-    gap between the two packages' bf16 forwards on the same weights and
-    tokens (rounding at other places, amplified through the layers).
-    What grows with width is one rounding: the final norm casts its
-    inverse rms to bf16, so a one-ulp change of it scales the whole row
-    of logits by ~2^-8, and the largest logit (the input token's own,
-    ~d_model with random weights) moves by ~d_model / 256.  With that
-    norm in fp32 the bf16 gap stays under the bound at both widths.
-    12 layers, vocab 4096, 16 tokens; the numbers print with
-    ``pytest -s``."""
+def test_decode_gap_is_rounding(jx, monkeypatch, d_model):
+    """In fp32 the port's decode reproduces its forward (< 1e-3).  In bf16
+    the two differ by the attention kernel's rounding: it casts the
+    unnormalised probabilities to bf16 before P.V, as the TPU kernel does,
+    where the einsum decode casts the normalised ones.  The reference
+    shows the same gap between its own decode and its own forward once
+    that forward runs its TPU kernel (the Pallas kernel in interpret mode
+    in place of the einsum attention), and the port's bf16 gap stays
+    within DECODE_GAP_MARGIN of that gap at each width.  The gap grows
+    with width: with random tied weights the largest logit (the input
+    token's own) is ~d_model, so a last-bit change of the final hidden
+    state moves a row's log-softmax by ~d_model / 256.  12 layers, vocab
+    4096, 16 tokens; the numbers print with ``pytest -s``."""
     jax, jnp = jx[0], jx[1]
+    import repro.models.attention as jattention
     from repro.configs import get_config as jget
+    from repro.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd)
     from repro.models import make_model as jmake
     kw = dict(n_layers=12, d_model=d_model, lru_width=d_model,
               d_ff=3 * d_model, vocab=4096, n_heads=16, head_dim=256)
@@ -412,14 +425,30 @@ def test_decode_gap_is_rounding(jx, d_model):
         jax.tree.map(np.asarray, params), cfg))
     b, s = 2, 16
     toks = _tokens(cfg, b, s, 15)
-    jfwd, _ = jmodel.apply(params, jnp.asarray(toks, jnp.int32), remat=False)
+    jtoks = jnp.asarray(toks, jnp.int32)
+    jfwd, _ = jmodel.apply(params, jtoks, remat=False)
     jcaches, jouts = jmodel.init_caches(b, s), []
     for i in range(s):
-        lg, jcaches = jmodel.decode_step(
-            params, jnp.asarray(toks[:, i:i + 1], jnp.int32), jcaches,
-            jnp.int32(i))
+        lg, jcaches = jmodel.decode_step(params, jtoks[:, i:i + 1], jcaches,
+                                         jnp.int32(i))
         jouts.append(_np(lg))
-    ref_self = _logsoftmax_gap(np.concatenate(jouts, 1), jfwd)
+    jdec = np.concatenate(jouts, 1)
+    ref_self = _logsoftmax_gap(jdec, jfwd)
+    kernel_calls = []
+
+    def attend_kernel(self, q, k, v, mask):
+        del mask                   # causal + window, from the kernel's iota
+        kernel_calls.append(q.shape)
+        pad = (-q.shape[1]) % 128  # the kernel's default blocks
+        t = [jnp.pad(x, ((0, 0), (0, pad), (0, 0), (0, 0))).transpose(
+            0, 2, 1, 3) for x in (q, k, v)]
+        o = flash_attention_fwd(*t, causal=True, window=self.cfg.window,
+                                scale=1.0, interpret=True)
+        return o.transpose(0, 2, 1, 3)[:, :q.shape[1]]
+    monkeypatch.setattr(jattention.Attention, "_attend_dense", attend_kernel)
+    jfwd_kernel, _ = jmodel.apply(params, jtoks, remat=False)
+    assert kernel_calls     # traced once, in the scan over layer groups
+    ref_kernel = _logsoftmax_gap(jdec, jfwd_kernel)
     gaps = {}
     for dtype in (torch.bfloat16, torch.float32):
         model.compute_dtype = dtype
@@ -430,31 +459,13 @@ def test_decode_gap_is_rounding(jx, d_model):
             lg, caches = step(torch.as_tensor(toks[:, i:i + 1]), caches, i)
             outs.append(lg)
         gaps[dtype] = _logsoftmax_gap(torch.cat(outs, 1), fwd)
-        if dtype == torch.bfloat16:
-            cross = _logsoftmax_gap(fwd, jfwd)
-            top = float(fwd.max())
-    model.compute_dtype = torch.bfloat16
-    norm = model.final_norm
-
-    def norm_fp32(x):
-        var = x.float().square().mean(-1, keepdim=True)
-        return x.float() * torch.rsqrt(var + norm.eps) * (1.0 + norm.scale)
-    norm.forward = norm_fp32
-    fwd = make_prefill_step(model, cfg)(torch.as_tensor(toks))
-    step, caches, outs = make_serve_step(model, cfg), model.init_caches(b, s), []
-    for i in range(s):
-        lg, caches = step(torch.as_tensor(toks[:, i:i + 1]), caches, i)
-        outs.append(lg)
-    norm32 = _logsoftmax_gap(torch.cat(outs, 1), fwd)
     print(f"d_model {d_model}: logits' std {float(np.std(_np(jfwd))):.3g}; "
-          f"max |d log-softmax| (greedy agreement): port decode vs forward "
+          f"max |d log-softmax| (greedy agreement), decode vs forward: port "
           f"bf16 {gaps[torch.bfloat16][0]:.3g} ({gaps[torch.bfloat16][1]:.3g})"
-          f", fp32 {gaps[torch.float32][0]:.3g}, bf16 with the final norm "
-          f"in fp32 {norm32[0]:.3g}; largest logit {top:.4g}; port vs "
-          f"reference forward bf16 {cross[0]:.3g} ({cross[1]:.3g}); "
-          f"reference decode vs forward bf16 {ref_self[0]:.3g} "
-          f"({ref_self[1]:.3g})")
+          f", port fp32 {gaps[torch.float32][0]:.3g}; reference bf16 with "
+          f"its TPU kernel {ref_kernel[0]:.3g} ({ref_kernel[1]:.3g}), with "
+          f"its einsum attention {ref_self[0]:.3g} ({ref_self[1]:.3g})")
     assert gaps[torch.float32][0] < 1e-3
-    assert norm32[0] < LOGSOFTMAX_TOL and norm32[1] >= AGREE
-    assert gaps[torch.bfloat16][0] < 2 * cross[0] + 0.5
-    assert min(gaps[torch.bfloat16][1], cross[1], ref_self[1]) >= AGREE
+    port_gap = gaps[torch.bfloat16][0]
+    assert abs(port_gap - ref_kernel[0]) <= DECODE_GAP_MARGIN(ref_kernel[0])
+    assert min(gaps[torch.bfloat16][1], ref_kernel[1], ref_self[1]) >= AGREE
