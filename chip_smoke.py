@@ -7,19 +7,21 @@ CUDA.  It imports nothing of JAX or of the JAX package ``repro``.
 
 Phases (each prints its lines; any failure exits non-zero):
 
-1. build — compile the five kernels from ``src/repro_torch/kernels/*/csrc``
+1. build — compile the six kernels from ``src/repro_torch/kernels/*/csrc``
    (one nvcc each, in parallel);
 2. kernels — wavefront search, slot scoring and fused prepare against
    their plain PyTorch versions on the card, bit-equal, at the paper mesh
    (8x8x4) with 16 and 32 slots and batches of 64, 1000 and 1024, on
    occupancy taken from a real allocator state; times at the main
    path's shape (a 64-request search wave, 16 slots);
-3. model kernels — flash attention and the RG-LRU scan against their
-   plain versions at the model's prefill shapes (B=2, S=4096, 16/1
-   heads of 256, window 2048, bf16; (2, 4096, 4096) fp32) and at odd
-   ones (S not a block multiple, GQA, no window, fp32), to the
-   tolerances of tests/test_kernels.py; times at the model's shapes,
-   and SDPA on the same mask as the attention's library time;
+3. model kernels — flash attention, the RG-LRU scan and the SSD scan
+   against their plain versions at the models' prefill shapes (B=2,
+   S=4096, 16/1 heads of 256, window 2048, bf16; (2, 4096, 4096) fp32;
+   x (4, 8192, 24, 64) bf16 with B/C (4, 8192, 128) as column views of
+   one conv output) and at odd ones (S not a block or chunk multiple,
+   GQA, no window, fp32), to the tolerances of tests/test_kernels.py;
+   times at the models' shapes, and SDPA on the same mask as the
+   attention's library time;
 4. slice — ``NomFabric(mesh=PAPER_MESH, n_slots=16)`` with the fused,
    host and auto allocator backends, and a NoM-Light fabric, on one seeded
    stream of 4096 transfers (copies of 512 B-64 KB with 0-3 extra slots,
@@ -33,13 +35,14 @@ Phases (each prints its lines; any failure exits non-zero):
 5. timing — µs per allocation of each path over rotated rounds (median
    and range), and the host time of one split-pipeline scoring round on
    the scoring kernel against numpy (the allocator's choice);
-6. model — ``recurrentgemma-smoke`` on the card against the CPU plain
-   versions; then ``recurrentgemma-9b`` at full width and depth from
-   seeded weights on the card: the prefill step on B=2 x S=4096 (12
-   flash_attention and 26 rglru_scan launches, nothing else), decode vs
-   forward over 64 tokens, ``Engine.generate`` for 4 requests (no
-   launch), times, a profile of one prefill and of one decode step,
-   and the peak memory;
+6. models — ``recurrentgemma-smoke`` and ``mamba2-smoke`` on the card
+   against the CPU plain versions; then ``recurrentgemma-9b`` and
+   ``mamba2-130m`` at full width and depth from seeded weights on the
+   card: the prefill step (recurrentgemma B=2 x S=4096: 12
+   flash_attention and 26 rglru_scan launches; mamba2 B=4 x S=8192: 24
+   ssd_scan launches; nothing else), decode vs forward over 64 tokens,
+   ``Engine.generate`` for 4 requests (no launch), times, a profile of
+   one prefill and of one decode step, and the peak memory;
 7. the kernel table (one JSON line, launches per path), the card's name
    and power limit, and the closing ``{"ok": true, ...}`` line.
 """
@@ -572,6 +575,17 @@ FLASH_MODEL_TOL = 5e-3
 RGLRU_MODEL = (2, 4096, 4096, "float32", 1e-5)
 RGLRU_CASES = [RGLRU_MODEL, (2, 200, 128, "float32", 1e-5),
                (3, 77, 100, "float32", 1e-5), (1, 130, 128, "bfloat16", 2e-2)]
+# (b, s, h, hd, n, dtype, tol on max |d| / max |plain|, the sweep's own
+# measure): the model's prefill shape (mamba2-130m, B=4 x S=8192), the
+# four of test_ssd_scan_sweep, then S not a multiple of the chunk and the
+# smoke model's heads.
+SSD_MODEL = (4, 8192, 24, 64, 128, "bfloat16", 5e-2)
+SSD_CASES = [SSD_MODEL, (2, 256, 3, 32, 16, "float32", 1e-4),
+             (1, 384, 2, 64, 128, "float32", 1e-4),
+             (1, 256, 2, 32, 64, "float32", 1e-4),
+             (1, 256, 2, 32, 16, "bfloat16", 5e-2),
+             (2, 200, 3, 64, 128, "float32", 1e-4),
+             (2, 80, 8, 16, 16, "float32", 1e-4)]
 
 
 def flash_work(b, sq, sk, hq, hkv, d, causal, window, dtype):
@@ -590,6 +604,36 @@ def flash_work(b, sq, sk, hq, hkv, d, causal, window, dtype):
     return nbytes, int(ok.sum()) * 4 * d * b * hq
 
 
+def ssd_work(b, s, h, hd, n, dtype, chunk):
+    """(bytes, FLOPs) of the SSD scan on these inputs: x, B, C, dt and A
+    read once (B and C once per batch row, not per head), y written once;
+    per (batch, head, chunk of q tokens) 2q^2 n (C.B^T) + 2q^2 hd (M.x) +
+    4q hd n (C.state^T and the state update) FLOPs at the kernel's q."""
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * b * s * h * hd + 2 * b * s * n) * size + b * s * h * 4 + h * 4
+    q = chunk
+    flops = b * h * (s // q) * (2 * q * q * n + 2 * q * q * hd + 4 * q * hd * n)
+    return nbytes, flops
+
+
+def ssd_inputs(case, gen, device):
+    """The sweep's distributions (dt ~ U(0.001, 0.1), B/C ~ 0.3 N(0, 1),
+    A = -exp(U(-1, 1))), with x, B and C column views of one (b, S,
+    H * hd + 2n) tensor, as the model passes them; at the model's shape
+    A = -(1 .. H), the model's init."""
+    import torch
+    b, s, h, hd, n, dtype = case[:6]
+    xbc = torch.randn((b, s, h * hd + 2 * n), generator=gen, device=device)
+    xbc[..., h * hd:] *= 0.3
+    xbc = xbc.to(getattr(torch, dtype))
+    dt = torch.rand((b, s, h), generator=gen, device=device) * 0.099 + 0.001
+    A = (-torch.arange(1, h + 1, dtype=torch.float32, device=device)
+         if case is SSD_MODEL else
+         -torch.exp(torch.rand((h,), generator=gen, device=device) * 2 - 1))
+    return (xbc[..., :h * hd].unflatten(-1, (h, hd)), dt,
+            xbc[..., h * hd:h * hd + n], xbc[..., h * hd + n:], A)
+
+
 def bound(nbytes: float, ops: float, ops_per_s: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
@@ -597,11 +641,12 @@ def bound(nbytes: float, ops: float, ops_per_s: float):
 
 
 def phase_model_kernels(device):
-    """Flash attention and the RG-LRU scan against their plain versions on
-    the card, at the model's shapes and at odd ones; times at the model's
-    shape (CUDA events), with SDPA on the same boolean causal+window mask
-    as the library time of the attention.  Returns the kernel-table
-    rows."""
+    """Flash attention, the RG-LRU scan and the SSD scan against their
+    plain versions on the card, at the models' shapes and at odd ones;
+    times at the models' shapes (CUDA events), with SDPA on the same
+    boolean causal+window mask as the library time of the attention.
+    Returns the kernel-table rows and each kernel's largest |kernel -
+    plain|."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -609,6 +654,8 @@ def phase_model_kernels(device):
         BLOCK_K, BLOCK_Q, flash_attention_plain)
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import CHUNK, ssd_scan_plain
     gen = torch.Generator(device).manual_seed(SEED)
     rows = {}
     err_fa = 0.0
@@ -696,34 +743,73 @@ def phase_model_kernels(device):
                      f"{bnd:.4g} ms by {by}")
         print(line, flush=True)
         del a, bb, got, want
+    err_ssd = 0.0
+    for case in SSD_CASES:
+        b, s, h, hd, n, dtype, tol = case
+        args = ssd_inputs(case, gen, device)
+        got = ssd_scan(*args)
+        pad = (-s) % CHUNK
+        padded = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2)
+                                          + (0, pad)) for t in args[:4]]
+        want = ssd_scan_plain(*padded, args[4])[:, :s]
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / float(want.float().abs().max())
+        check(math.isfinite(rel) and rel < tol and got.shape == want.shape,
+              f"ssd_scan != plain at {case}: relative {rel}")
+        err_ssd = max(err_ssd, err)
+        line = (f"[kernels] ssd_scan b={b} s={s} h={h} hd={hd} n={n} "
+                f"{dtype}: max |kernel - plain| {err:.3g}, / max |plain| "
+                f"{rel:.3g} < {tol}")
+        if case is SSD_MODEL:
+            nbytes, ops = ssd_work(*case[:6], CHUNK)
+            bnd, by = bound(nbytes, ops, ALU_OPS_PER_S)
+            rows["ssd_scan"] = {
+                "ms": ms_per_call(lambda: ssd_scan(*args), 20, device),
+                "plain_ms": ms_per_call(lambda: ssd_scan_plain(*args), 3,
+                                        device),
+                "library_ms": None, "bound_ms": bnd, "bound_by": by,
+                "bytes": nbytes, "ops": ops}
+            line += (f"; kernel "
+                     f"{rows['ssd_scan']['ms']:.4g} ms, plain "
+                     f"{rows['ssd_scan']['plain_ms']:.4g} ms, bound "
+                     f"{bnd:.4g} ms by {by} ({nbytes / 1e6:.1f} MB, "
+                     f"{ops / 1e9:.2f} GFLOP at chunk {CHUNK})")
+        print(line, flush=True)
+        del args, got, want, padded
     torch.cuda.empty_cache()
-    return rows, {"flash_attention": err_fa, "rglru_scan": err_rg}
+    return rows, {"flash_attention": err_fa, "rglru_scan": err_rg,
+                  "ssd_scan": err_ssd}
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: recurrentgemma-9b served at full width
+# Phase 6: recurrentgemma-9b and mamba2-130m served at full width
 # ---------------------------------------------------------------------------
-ARCH = "recurrentgemma-9b"
-PREFILL_B, PREFILL_S = 2, 4096
+# arch -> (prefill batch, prefill length, launches of one prefill step):
+# each layer launches its mixer's kernel once (MIXER_KERNEL).
+MODELS = {
+    "recurrentgemma-9b": (2, 4096, {"flash_attention": 12, "rglru_scan": 26}),
+    "mamba2-130m": (4, 8192, {"ssd_scan": 24}),
+}
+MIXER_KERNEL = {"attn": "flash_attention", "rglru": "rglru_scan",
+                "ssm": "ssd_scan"}
 PARITY_TOKENS = 64
 LOGSOFTMAX_TOL, AGREE = 1.5, 0.95     # tests/test_decode.py, recurrent archs
 # Decode vs forward at full width: in fp32 max |d log-softmax| is held at
-# a bound set from its reading on the H100 (0.0122).  In bf16 the gap is
-# recorded and greedy agreement is held.  With random tied weights the
-# largest logit is ~d_model, so any last-bit difference between the
-# batched forward and the per-token decode moves a row's log-softmax by
-# ~d_model / 256: the attention kernel's rounding (it casts the
-# unnormalised probabilities to bf16 before P.V, as the TPU kernel does,
-# where the einsum decode casts the normalised ones), and matmuls that
-# round differently at the forward's and the decode's shapes.  The gap of
-# a forward through einsum attention, the reference's own prefill
-# arithmetic, is recorded beside it; the reference's own gap with its TPU
-# kernel is shown at d_model 64 and 512 by tests/test_torch_models.py::
-# test_decode_gap_is_rounding.
+# a bound set from recurrentgemma's reading on the H100 (0.0122).  In bf16
+# the gap is recorded and greedy agreement is held.  With random tied
+# weights the largest logit is ~d_model, so any last-bit difference
+# between the batched forward and the per-token decode moves a row's
+# log-softmax by ~d_model / 256: the attention kernel's rounding (it
+# casts the unnormalised probabilities to bf16 before P.V, as the TPU
+# kernel does, where the einsum decode casts the normalised ones), the
+# SSD scan's chunked sums against the decode's per-token state, and
+# matmuls that round differently at the forward's and the decode's
+# shapes.  For recurrentgemma the gap of a forward through einsum
+# attention, the reference's own prefill arithmetic, is recorded beside
+# it; the reference's own gap with its TPU kernel is shown at d_model 64
+# and 512 by tests/test_torch_models.py::test_decode_gap_is_rounding.
 FP32_GAP_TOL = 0.1
 SERVE_B, SERVE_P, SERVE_N = 4, 8, 24  # launch/serve.py's defaults
-MODEL_PATH_KERNELS = {"prefill": {"flash_attention": 12, "rglru_scan": 26},
-                      "generate": {}}
 
 
 def logsoftmax_gap(a, b):
@@ -767,26 +853,41 @@ def decode_gap(model, cfg, tokens, forward_logits):
     return logsoftmax_gap(torch.cat(outs, 1), forward_logits)
 
 
-def check_launches(path: str, counts: dict) -> None:
-    want = {k: MODEL_PATH_KERNELS[path].get(k, 0) for k in counts}
+def check_launches(path: str, counts: dict, want: dict) -> None:
+    want = {k: want.get(k, 0) for k in counts}
     check(counts == want, f"{path}: launches {counts}, expected {want}")
 
 
-def phase_smoke_model(device):
-    """recurrentgemma-smoke (S=80 > window 32) on the card, through the
+def layer_kernels(cfg) -> dict:
+    """Launches of one prefill step by the config's layers: one launch
+    of its mixer's kernel per layer."""
+    out: dict[str, int] = {}
+    for j in range(cfg.n_layers):
+        k = MIXER_KERNEL[cfg.pattern[j % len(cfg.pattern)].mixer]
+        out[k] = out.get(k, 0) + 1
+    return out
+
+
+def phase_smoke_model(device, arch):
+    """The smoke config of ``arch`` (S=80: past recurrentgemma's window
+    of 32, five of mamba2's 16-token chunks) on the card, through the
     kernels, against the same weights on the CPU, through the plain
     versions."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
     from repro_torch.models import CausalLM, make_model
     from repro_torch.train import make_prefill_step
-    cfg = get_config(ARCH, smoke=True)
+    cfg = get_config(arch, smoke=True)
     model = make_model(cfg, device=device, seed=SEED)
     cpu = CausalLM(cfg, "cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     toks = torch.randint(0, cfg.vocab, (2, 80), device=device,
                          generator=torch.Generator(device).manual_seed(SEED))
+    _lib.reset_launch_counts()
     fwd = make_prefill_step(model, cfg)(toks)
+    check_launches(f"{cfg.name} prefill", dict(_lib.launch_counts),
+                   layer_kernels(cfg))
     want = make_prefill_step(cpu, cfg)(toks.cpu())
     gap, agree = logsoftmax_gap(fwd.cpu(), want)
     check(gap < LOGSOFTMAX_TOL and agree > AGREE,
@@ -794,7 +895,8 @@ def phase_smoke_model(device):
     dgap, dagree = decode_gap(model, cfg, toks, fwd)
     check(dgap < LOGSOFTMAX_TOL and dagree > AGREE,
           f"smoke model: decode vs forward gap {dgap}, agreement {dagree}")
-    print(f"[model] {cfg.name} B=2 S=80 (window 32), bf16: card (kernels) vs "
+    print(f"[model] {cfg.name} B=2 S=80, bf16: card (kernels "
+          f"{json.dumps(layer_kernels(cfg))}) vs "
           f"CPU (plain versions) max |d log-softmax| {gap:.4g}, greedy "
           f"agreement {agree:.4g}; decode vs forward on the card "
           f"{dgap:.4g}, {dagree:.4g} (bounds < {LOGSOFTMAX_TOL}, "
@@ -843,15 +945,15 @@ def profile_call(fn):
         return {"not_measured": f"{type(exc).__name__}: {exc}"}
 
 
-def phase_model(device):
-    """recurrentgemma-9b at full width and depth, weights from a seeded
-    generator on the card: the prefill step on B=2 x S=4096 (each
-    attention layer launches flash_attention once, each recurrent layer
-    rglru_scan once), decode-vs-forward parity over the first 64 tokens
-    (bounded in fp32, recorded in bf16: see FP32_GAP_TOL), and
-    Engine.generate with launch/serve.py's defaults (plain decode, no
-    kernel).  Each path runs with the launch counts set to 0 just before
-    it and read just after.  Returns the per-path launches."""
+def phase_model(device, arch):
+    """``arch`` at full width and depth, weights from a seeded generator
+    on the card: the prefill step on its MODELS batch (each layer
+    launches its mixer's kernel once), decode-vs-forward parity over the
+    first 64 tokens (bounded in fp32, recorded in bf16: see
+    FP32_GAP_TOL), and Engine.generate with launch/serve.py's defaults
+    (plain decode, no kernel).  Each path runs with the launch counts set
+    to 0 just before it and read just after.  Returns the per-path
+    launches, keyed "<arch>/prefill" and "<arch>/generate"."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
@@ -859,19 +961,18 @@ def phase_model(device):
     from repro_torch.models import COMPUTE_DTYPE, attention, make_model
     from repro_torch.serving import Engine
     from repro_torch.train import make_prefill_step, make_serve_step
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    prefill_b, prefill_s, want = MODELS[arch]
+    check(layer_kernels(cfg) == want,
+          f"{arch}: layers launch {layer_kernels(cfg)}, expected {want}")
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     model = make_model(cfg, device=device, seed=SEED)
     torch.cuda.synchronize(device)
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    kinds = [cfg.pattern[j % len(cfg.pattern)].mixer
-             for j in range(cfg.n_layers)]
-    check(kinds.count("attn") == 12 and kinds.count("rglru") == 26,
-          f"unexpected layer kinds {kinds}")
     gen = torch.Generator(device).manual_seed(SEED + 1)
-    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+    tokens = torch.randint(0, cfg.vocab, (prefill_b, prefill_s),
                            generator=gen, device=device)
     prefill = make_prefill_step(model, cfg)
 
@@ -880,11 +981,16 @@ def phase_model(device):
     logits = prefill(tokens)
     torch.cuda.synchronize(device)
     first_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"prefill": dict(_lib.launch_counts)}
-    check_launches("prefill", launches["prefill"])
-    check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, cfg.padded_vocab)
+    launches = {f"{arch}/prefill": dict(_lib.launch_counts)}
+    check_launches(f"{arch}/prefill", launches[f"{arch}/prefill"], want)
+    check(tuple(logits.shape) == (prefill_b, prefill_s, cfg.padded_vocab)
           and logits.dtype == torch.float32, f"logits {logits.shape}")
-    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    # Checked in slices of 4096 rows: isfinite on the whole would hold an
+    # fp32 abs and two bool copies of the logits (~2.5x their size) and
+    # set the phase's peak memory itself.
+    check(all(bool(torch.isfinite(part).all())
+              for part in logits.flatten(0, 1).split(4096)),
+          "prefill logits not finite")
     head = logits[:, :PARITY_TOKENS].clone()
     del logits
     warm = []
@@ -895,21 +1001,26 @@ def phase_model(device):
         warm.append((time.perf_counter() - t0) * 1e3)
     prof = profile_call(lambda: prefill(tokens))
     print(f"[model] {cfg.name}: {n_params} parameters (fp32) initialised on "
-          f"the card in {init_s:.2f} s; prefill B={PREFILL_B} x "
-          f"S={PREFILL_S}: {first_ms:.1f} ms first, {warm} ms warm; launches "
-          f"{json.dumps(launches['prefill'])}; logits finite", flush=True)
-    print(f"[profile] prefill {json.dumps(prof)}", flush=True)
+          f"the card in {init_s:.2f} s; prefill B={prefill_b} x "
+          f"S={prefill_s}: {first_ms:.1f} ms first, {warm} ms warm; launches "
+          f"{json.dumps(launches[f'{arch}/prefill'])}; logits finite",
+          flush=True)
+    print(f"[profile] {arch} prefill {json.dumps(prof)}", flush=True)
 
     gap, agree = decode_gap(model, cfg, tokens, head)
     check(agree > AGREE, f"decode vs forward (bf16): greedy agreement "
           f"{agree}, max |d log-softmax| {gap}")
     logit_std, logit_max = float(head.std()), float(head.max())
-    attention.flash_attention = einsum_attention
-    try:
-        gap_einsum, _ = decode_gap(model, cfg, tokens,
-                                   prefill(tokens[:, :PARITY_TOKENS]))
-    finally:
-        attention.flash_attention = flash_attention
+    einsum_note = ""
+    if "flash_attention" in want:
+        attention.flash_attention = einsum_attention
+        try:
+            gap_einsum, _ = decode_gap(model, cfg, tokens,
+                                       prefill(tokens[:, :PARITY_TOKENS]))
+        finally:
+            attention.flash_attention = flash_attention
+        einsum_note = (f"; {gap_einsum:.4g} with the forward's attention in "
+                       "einsums")
     model.compute_dtype = torch.float32
     try:
         head32 = prefill(tokens[:, :PARITY_TOKENS])
@@ -919,13 +1030,12 @@ def phase_model(device):
     check(gap32 < FP32_GAP_TOL and agree32 > AGREE,
           f"decode vs forward (fp32): max |d log-softmax| {gap32}, "
           f"agreement {agree32}")
-    print(f"[model] decode vs forward over the first {PARITY_TOKENS} tokens: "
-          f"fp32 max |d log-softmax| {gap32:.4g} < {FP32_GAP_TOL}, greedy "
-          f"agreement {agree32:.4g} > {AGREE}; bf16 (served) max |d "
-          f"log-softmax| {gap:.4g} (largest logit {logit_max:.4g}, logits' "
-          f"std {logit_std:.4g}; {gap_einsum:.4g} with the forward's "
-          f"attention in einsums), greedy agreement {agree:.4g} > {AGREE}",
-          flush=True)
+    print(f"[model] {cfg.name} decode vs forward over the first "
+          f"{PARITY_TOKENS} tokens: fp32 max |d log-softmax| {gap32:.4g} < "
+          f"{FP32_GAP_TOL}, greedy agreement {agree32:.4g} > {AGREE}; bf16 "
+          f"(served) max |d log-softmax| {gap:.4g} (largest logit "
+          f"{logit_max:.4g}, logits' std {logit_std:.4g}{einsum_note}), "
+          f"greedy agreement {agree:.4g} > {AGREE}", flush=True)
     del head, head32
 
     eng = Engine(model, cfg, max_len=SERVE_P + SERVE_N + 8,
@@ -938,8 +1048,8 @@ def phase_model(device):
     out = eng.generate(prompt, SERVE_N)
     torch.cuda.synchronize(device)
     gen_s = time.perf_counter() - t0
-    launches["generate"] = dict(_lib.launch_counts)
-    check_launches("generate", launches["generate"])
+    launches[f"{arch}/generate"] = dict(_lib.launch_counts)
+    check_launches(f"{arch}/generate", launches[f"{arch}/generate"], {})
     check(tuple(out.shape) == (SERVE_B, SERVE_P + SERVE_N)
           and torch.equal(out[:, :SERVE_P], prompt)
           and bool(((out >= 0) & (out < cfg.vocab)).all()),
@@ -950,12 +1060,12 @@ def phase_model(device):
     serve = make_serve_step(model, cfg)
     serve(prompt[:, :1], caches, 0)
     prof_dec = profile_call(lambda: serve(prompt[:, 1:2], caches, 1))
-    print(f"[profile] decode step {json.dumps(prof_dec)}", flush=True)
-    print(f"[model] Engine.generate: {SERVE_B} requests, prompt {SERVE_P}, "
-          f"{SERVE_N} new tokens in {gen_s * 1e3:.1f} ms "
+    print(f"[profile] {arch} decode step {json.dumps(prof_dec)}", flush=True)
+    print(f"[model] {cfg.name} Engine.generate: {SERVE_B} requests, prompt "
+          f"{SERVE_P}, {SERVE_N} new tokens in {gen_s * 1e3:.1f} ms "
           f"({gen_s * 1e3 / steps:.2f} ms per decode step, {steps} steps); "
-          f"launches {json.dumps(launches['generate'])}; peak device memory "
-          f"{peak / 2**30:.2f} GiB", flush=True)
+          f"launches {json.dumps(launches[f'{arch}/generate'])}; peak device "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
     del model, eng
     torch.cuda.empty_cache()
     return launches
@@ -984,6 +1094,8 @@ KERNEL_META = {
                         "flash_attention.py:75"),
     "rglru_scan": ("src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan/rglru_scan.py:46"),
+    "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/ssd_scan.py:60"),
 }
 
 
@@ -1043,8 +1155,10 @@ def main() -> int:
                        f"({100 * kern_ms / (stats[kind]['seconds'] * 1e3):.2f} %)")
     print(f"[where] kernel time <= {json.dumps(share)}", flush=True)
 
-    phase_smoke_model(device)
-    launches.update(phase_model(device))
+    for arch in MODELS:
+        phase_smoke_model(device, arch)
+    for arch in MODELS:
+        launches.update(phase_model(device, arch))
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

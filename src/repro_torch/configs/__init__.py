@@ -3,10 +3,11 @@
 through ARCHS."""
 from __future__ import annotations
 
-from . import recurrentgemma_9b
+from . import mamba2_130m, recurrentgemma_9b
 from .base import ArchConfig, LayerKind
 
 ARCHS = {
+    "mamba2-130m": mamba2_130m,
     "recurrentgemma-9b": recurrentgemma_9b,
 }
 

@@ -8,5 +8,7 @@ version that CPU tensors take, all built, loaded, launched and counted by
   key-padding masks (``kernels/flash_attention/csrc/flash_attention.cu``)
 * rglru_scan — the RG-LRU linear recurrence
   (``kernels/rglru_scan/csrc/rglru_scan.cu``)
+* ssd_scan — the Mamba-2 SSD chunked scan
+  (``kernels/ssd_scan/csrc/ssd_scan.cu``)
 
-The reference's SSD scan is not ported yet."""
+Together they replace every Pallas TPU kernel of the reference."""

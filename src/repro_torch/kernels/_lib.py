@@ -32,7 +32,8 @@ BUILD_DIR = PKG.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +60,10 @@ KERNELS = {
                               (_P,) * 4 + (_I,) * 10 + (_F, _P)),
     # a, b, y, batch, seq, width, bf16, stream
     "rglru_scan": Kernel("rglru_scan", (), (_P,) * 3 + (_I,) * 4 + (_P,)),
+    # x, dt, B, C, A, y, batch, seq, heads, head_dim, d_state, x strides
+    # (3), dt strides (3), B strides (2), C strides (2), bf16, stream
+    "ssd_scan": Kernel("ssd_scan", (),
+                       (_P,) * 6 + (_I,) * 5 + (_L,) * 10 + (_I, _P)),
 }
 
 # Launches per kernel since the last reset (only real kernel launches:

@@ -1,10 +1,11 @@
 """Layer composition (counterpart of ``repro.models.blocks``): decoder
-layers (attention or RG-LRU mixer, MLP ffn) and the layer stack.
+layers (attention, RG-LRU or SSM mixer; MLP ffn or none) and the layer
+stack.
 
 The reference scans ``lax.scan`` over stacked groups of the layer pattern
-(recurrentgemma: rglru, rglru, attn) plus a tail, with remat and sharding
-hints; on one device the port keeps plain per-layer modules, layer j
-being of kind ``pattern[j % len(pattern)]`` as in the reference.
+(recurrentgemma: rglru, rglru, attn; mamba2: ssm) plus a tail, with remat
+and sharding hints; on one device the port keeps plain per-layer modules,
+layer j being of kind ``pattern[j % len(pattern)]`` as in the reference.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from .attention import Attention, AttentionConfig
 from .common import RMSNorm
 from .mlp import MLP, MLPConfig
 from .rglru import RecurrentBlock, RGLRUConfig
+from .ssm import Mamba2, SSMConfig
 
 
 def _norm(cfg: ArchConfig, device=None) -> RMSNorm:
@@ -32,6 +34,10 @@ def make_mixer(cfg: ArchConfig, kind: LayerKind, device=None):
             rope_theta=kind.rope_theta or cfg.rope_theta,
             use_rope=cfg.use_rope, logit_softcap=cfg.logit_softcap,
             window=kind.window), device)
+    if kind.mixer == "ssm":
+        return Mamba2(SSMConfig(d_model=cfg.d_model, d_state=cfg.ssm_state,
+                                head_dim=cfg.ssm_head_dim,
+                                chunk=cfg.ssm_chunk), device)
     if kind.mixer == "rglru":
         return RecurrentBlock(RGLRUConfig(d_model=cfg.d_model,
                                           lru_width=cfg.lru_width), device)
@@ -39,20 +45,28 @@ def make_mixer(cfg: ArchConfig, kind: LayerKind, device=None):
 
 
 class DecoderLayer(nn.Module):
+    """Pre-norm residual layer: mixer, then the ffn where the kind has
+    one (``ffn="none"``, as mamba2's, has neither ``ln2`` nor ``ffn``)."""
+
     def __init__(self, cfg: ArchConfig, kind: LayerKind, device=None):
         super().__init__()
-        if kind.ffn != "mlp":
+        if kind.ffn not in ("mlp", "none"):
             raise NotImplementedError(f"ffn {kind.ffn!r} is not ported yet")
         self.ln1 = _norm(cfg, device)
         self.mixer = make_mixer(cfg, kind, device)
-        self.ln2 = _norm(cfg, device)
-        self.ffn = MLP(MLPConfig(cfg.d_model, cfg.d_ff, activation=cfg.act,
-                                 gated=cfg.gated_mlp, use_bias=cfg.mlp_bias),
-                       device)
+        if kind.ffn == "mlp":
+            self.ln2 = _norm(cfg, device)
+            self.ffn = MLP(MLPConfig(cfg.d_model, cfg.d_ff, activation=cfg.act,
+                                     gated=cfg.gated_mlp,
+                                     use_bias=cfg.mlp_bias), device)
+        else:
+            self.ffn = None
+
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.ffn is None else x + self.ffn(self.ln2(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.mixer(self.ln1(x))
-        return x + self.ffn(self.ln2(x))
+        return self._ffn(x + self.mixer(self.ln1(x)))
 
     def decode(self, x: torch.Tensor, cache: dict, pos: int):
         h = self.ln1(x)
@@ -60,8 +74,7 @@ class DecoderLayer(nn.Module):
             h, cache = self.mixer.decode(h, cache, pos)
         else:
             h, cache = self.mixer.decode(h, cache)
-        x = x + h
-        return x + self.ffn(self.ln2(x)), cache
+        return self._ffn(x + h), cache
 
     def init_cache(self, batch: int, max_len: int, dtype) -> dict:
         if isinstance(self.mixer, Attention):

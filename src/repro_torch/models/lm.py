@@ -1,10 +1,11 @@
 """Top-level model (counterpart of ``repro.models.lm``): the decoder-only
 ``CausalLM`` with its decode step.
 
-Not in this slice: ``EncDecLM`` (whisper), prefix-LM inputs (VLM), MoE
-and SSM layers, QKV bias, QK norm, LayerNorm, sandwich norms and untied
-heads; ``CausalLM`` and :func:`make_model` raise ``NotImplementedError``
-for configs that need them.
+Its layers are attention, RG-LRU and SSM (Mamba-2) mixers with an MLP
+ffn or none.  Not ported yet: ``EncDecLM`` (whisper), prefix-LM inputs
+(VLM), MoE layers, QKV bias, QK norm, LayerNorm, sandwich norms and
+untied heads; ``CausalLM`` and :func:`make_model` raise
+``NotImplementedError`` for configs that need them.
 """
 from __future__ import annotations
 
@@ -61,9 +62,9 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.arch_type != "decoder":
         missing.append(f"arch_type={cfg.arch_type!r} (EncDecLM, VLM prefix)")
     for k in cfg.pattern:
-        if k.mixer not in ("attn", "rglru"):
+        if k.mixer not in ("attn", "rglru", "ssm"):
             missing.append(f"{k.mixer} mixers")
-        if k.ffn != "mlp":
+        if k.ffn not in ("mlp", "none"):
             missing.append(f"{k.ffn} ffns")
     if cfg.norm_type != "rms" or cfg.post_norms:
         missing.append("LayerNorm / sandwich norms")

@@ -185,7 +185,7 @@ def test_plain_versions_launch_nothing_on_cpu():
     assert dict(_lib.launch_counts) == before
     assert set(_lib.launch_counts) == {"wavefront_search", "slot_score",
                                        "fused_prepare", "flash_attention",
-                                       "rglru_scan"}
+                                       "rglru_scan", "ssd_scan"}
 
 
 # --- on the card ---------------------------------------------------------------

@@ -100,7 +100,7 @@ def test_config_mirrors_reference(jx, smoke):
     got = get_config("recurrentgemma-9b", smoke=smoke)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.param_count_estimate() == want.param_count_estimate()
-    assert sorted(ARCHS) == ["recurrentgemma-9b"]
+    assert sorted(ARCHS) == ["mamba2-130m", "recurrentgemma-9b"]
 
 
 def test_full_width_parameters_match_reference(jx):
@@ -372,8 +372,7 @@ def test_make_model_seeds_and_refuses_unported_configs():
             make_model(cfg)
     k = cfg.pattern[0]
     for bad in (dataclasses.replace(cfg, arch_type="encdec"),
-                dataclasses.replace(cfg, pattern=(dataclasses.replace(
-                    k, mixer="ssm"),)),
+                dataclasses.replace(cfg, tie_embeddings=False),
                 dataclasses.replace(cfg, pattern=(dataclasses.replace(
                     k, ffn="moe"),)),
                 dataclasses.replace(cfg, qkv_bias=True),

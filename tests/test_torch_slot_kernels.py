@@ -280,4 +280,4 @@ def test_cuda_kernels_match_plain(cuda_device, n_slots):
                                       packed_numpy(plain[2]))
         assert {k: _lib.launch_counts[k] - before[k] for k in before} == \
             {"wavefront_search": 1, "slot_score": 1, "fused_prepare": 1,
-             "flash_attention": 0, "rglru_scan": 0}
+             "flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0}
