@@ -36,8 +36,7 @@ def make_mixer(cfg: ArchConfig, kind: LayerKind, device=None):
             window=kind.window), device)
     if kind.mixer == "ssm":
         return Mamba2(SSMConfig(d_model=cfg.d_model, d_state=cfg.ssm_state,
-                                head_dim=cfg.ssm_head_dim,
-                                chunk=cfg.ssm_chunk), device)
+                                head_dim=cfg.ssm_head_dim), device)
     if kind.mixer == "rglru":
         return RecurrentBlock(RGLRUConfig(d_model=cfg.d_model,
                                           lru_width=cfg.lru_width), device)

@@ -31,7 +31,6 @@ class SSMConfig:
     head_dim: int = 64
     expand: int = 2
     conv_width: int = 4
-    chunk: int = 256
     dt_min: float = 0.001
     dt_max: float = 0.1
 
@@ -111,20 +110,14 @@ class Mamba2(nn.Module):
         return torch.einsum("bsi,id->bsd", y, self.out_proj.to(z.dtype))
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
-        """Prefill: u (B, S, D); S is padded to the chunk multiple as in
-        the reference (trailing pad: causal, so outputs for real positions
-        are unaffected)."""
-        c = self.cfg
-        s0 = u.shape[1]
-        pad = (-s0) % c.chunk
-        if pad:
-            u = F.pad(u, (0, 0, 0, pad))
+        """Prefill: u (B, S, D), any S (the scan pads to its own chunk;
+        the reference pads the whole mixer to ``ssm_chunk`` for its
+        einsum scan)."""
         z, xbc, dt = self._project(u)
         xbc, _ = self._conv(xbc)
         x, B, C = self._split(xbc)
         y = ssd_scan(x, dt, B, C, -torch.exp(self.A_log.float()))
-        out = self._out(y, x, z)
-        return out[:, :s0] if pad else out
+        return self._out(y, x, z)
 
     # -- O(1) decode -----------------------------------------------------------
     def init_cache(self, batch: int, dtype=COMPUTE_DTYPE) -> dict:

@@ -83,12 +83,12 @@ def _mixer(jx, layer=0):
     weights of the smoke model."""
     jax, jnp = jx[0], jx[1]
     from repro.models.ssm import Mamba2 as JMamba2, SSMConfig as JCfg
-    kw = dict(d_model=64, d_state=16, head_dim=16, chunk=16)
+    kw = dict(d_model=64, d_state=16, head_dim=16)
     p = jax.tree.map(lambda a: np.asarray(a)[layer],
                      jx[4]["stack"]["groups"]["l0"]["mixer"])
     mod = Mamba2(SSMConfig(**kw), "cpu")
     mod.load_state_dict({k: torch.tensor(v) for k, v in _flat(p)})
-    return JMamba2(JCfg(**kw)), jax.tree.map(jnp.asarray, p), mod
+    return JMamba2(JCfg(**kw, chunk=16)), jax.tree.map(jnp.asarray, p), mod
 
 
 # --- configs -------------------------------------------------------------------
@@ -144,8 +144,9 @@ def test_init_matches_reference_fixed_values(jx):
 
 # --- the mixer -----------------------------------------------------------------
 def test_mamba2_apply_and_decode(jx):
-    """S=40 (padded to the chunk of 16 inside, and to the kernel's 64 by
-    the scan's wrapper): forward and 40 decode steps against the
+    """S=40 (padded to the reference's chunk of 16 inside its mixer, and
+    to the kernel's 64 by the port's scan wrapper): forward and 40 decode
+    steps against the
     reference's, in bf16, and decode against the port's own forward."""
     jnp = jx[1]
     jmod, jp, mod = _mixer(jx)
