@@ -19,9 +19,10 @@ Phases (each prints its lines; any failure exits non-zero):
    S=4096, 16/1 heads of 256, window 2048, bf16; (2, 4096, 4096) fp32;
    x (4, 8192, 24, 64) bf16 with B/C (4, 8192, 128) as column views of
    one conv output) and at odd ones (S not a block or chunk multiple,
-   GQA, no window, fp32), to the tolerances of tests/test_kernels.py;
-   times at the models' shapes, and SDPA on the same mask as the
-   attention's library time;
+   GQA, no window, fp32; the bf16 attention kernel at every head dim),
+   to the tolerances of tests/test_kernels.py; times at the models'
+   shapes, and SDPA on the same mask as the attention's library time;
+   the attention at its model shape on five more seeds, reported;
 4. slice — ``NomFabric(mesh=PAPER_MESH, n_slots=16)`` with the fused,
    host and auto allocator backends, and a NoM-Light fabric, on one seeded
    stream of 4096 transfers (copies of 512 B-64 KB with 0-3 extra slots,
@@ -51,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -554,7 +556,11 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 # (b, sq, sk, hq, hkv, d, causal, window, dtype, tol); the first is the
 # model's prefill shape (recurrentgemma-9b, B=2 x S=4096), the next five
 # test_flash_attention_sweep's, then odd ones: S not a block multiple,
-# g=2 GQA, no window, fp32, Sk != Sq without causality.
+# g=2 GQA, no window, fp32, Sk != Sq without causality; then the bf16
+# (wgmma) kernel at every head dim with S not a block multiple, g=2 GQA,
+# no window, a window crossing key blocks, one under a key block, and
+# Sk != Sq without causality.  Every case but the model's has scale
+# d ** -0.5 != 1.
 FLASH_MODEL = (2, 4096, 4096, 16, 1, 256, True, 2048, "bfloat16", 2e-2)
 FLASH_CASES = [
     FLASH_MODEL,
@@ -566,11 +572,16 @@ FLASH_CASES = [
     (1, 333, 333, 4, 2, 64, True, None, "float32", 2e-5),
     (1, 200, 200, 4, 2, 256, True, None, "float32", 2e-5),
     (2, 100, 150, 4, 2, 128, False, None, "float32", 2e-5),
+    (1, 200, 200, 4, 2, 16, True, None, "bfloat16", 2e-2),
+    (1, 333, 333, 4, 4, 32, True, 100, "bfloat16", 2e-2),
+    (2, 300, 300, 8, 4, 128, True, 48, "bfloat16", 2e-2),
+    (1, 200, 200, 4, 2, 256, True, None, "bfloat16", 2e-2),
+    (2, 100, 150, 4, 2, 128, False, None, "bfloat16", 2e-2),
 ]
 # (b, s, w, dtype, tol): the model's shape, then odd ones.
 # At the model's shape an output row averages ~2048 keys, so a typical |o|
 # is ~0.036 and 2e-2 is about half of it: there the kernel is also held at
-# a bound set from its reading on the H100 (1.95e-3).
+# a bound set from the CUDA-core kernel's reading on the H100 (1.95e-3).
 FLASH_MODEL_TOL = 5e-3
 RGLRU_MODEL = (2, 4096, 4096, "float32", 1e-5)
 RGLRU_CASES = [RGLRU_MODEL, (2, 200, 128, "float32", 1e-5),
@@ -682,22 +693,27 @@ def phase_model_kernels(device):
     gen = torch.Generator(device).manual_seed(SEED)
     rows = {}
     err_fa = 0.0
-    for case in FLASH_CASES:
-        b, sq, sk, hq, hkv, d, causal, window, dtype, tol = case
-        td = getattr(torch, dtype)
-        scale = 1.0 if case is FLASH_MODEL else d ** -0.5
+
+    def flash_inputs(case, gen):
+        b, sq, sk, hq, hkv, d = case[:6]
+        td = getattr(torch, case[8])
         q = torch.randn((b, hq, sq + (-sq) % BLOCK_Q, d), generator=gen,
                         device=device)
         if case is FLASH_MODEL:
             q = q * d ** -0.5           # the model scales q before the kernel
-        q = q.to(td)
         k, v = (torch.randn((b, hkv, sk + (-sk) % BLOCK_K, d), generator=gen,
                             device=device).to(td) for _ in range(2))
+        return q.to(td), k, v
+
+    for case in FLASH_CASES:
+        b, sq, sk, hq, hkv, d, causal, window, dtype, tol = case
+        scale = 1.0 if case is FLASH_MODEL else d ** -0.5
+        q, k, v = flash_inputs(case, gen)
         kw = dict(causal=causal, window=window, scale=scale, seq_k=sk)
         got = flash_attention_fwd(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
-        err = (got[:, :, :sq].float() - want[:, :, :sq].float()).abs().max()
-        err = float(err)
+        diff = (got[:, :, :sq].float() - want[:, :, :sq].float()).abs()
+        err = float(diff.max())
         check(math.isfinite(err) and err < tol,
               f"flash_attention != plain at {case}: {err}")
         err_fa = max(err_fa, err)
@@ -708,7 +724,9 @@ def phase_model_kernels(device):
             check(err < FLASH_MODEL_TOL, f"flash_attention != plain at the "
                   f"model's shape: {err} >= {FLASH_MODEL_TOL}")
             line += (f" and < {FLASH_MODEL_TOL} (mean |plain| "
-                     f"{float(want[:, :, :sq].float().abs().mean()):.3g})")
+                     f"{float(want[:, :, :sq].float().abs().mean()):.3g}; "
+                     f"{float((diff > 0).float().mean()):.3g} of the "
+                     f"outputs differ)")
             nbytes, ops = flash_work(*case[:9])
             bnd, by = bound(nbytes, ops, BF16_OPS_PER_S)
             qp = torch.arange(q.shape[2], device=device)[:, None]
@@ -736,7 +754,25 @@ def phase_model_kernels(device):
                      f"by {by}")
             del sdpa, mask, ke, ve
         print(line, flush=True)
+        del q, k, v, got, want, diff
+    # The model's shape on other seeds, reported and not held: the scores'
+    # last bits (tensor-core sums against the plain version's fp32 ones)
+    # flip the bf16 rounding of a few probabilities, which moves ~0.8 % of
+    # the outputs by one bf16 ulp, and an ulp of an output in [1, 2) is
+    # 0.0078 > FLASH_MODEL_TOL.
+    kw = dict(causal=True, window=FLASH_MODEL[7], scale=1.0,
+              seq_k=FLASH_MODEL[2])
+    errs, sq = [], FLASH_MODEL[1]
+    for seed in range(SEED + 1, SEED + 6):
+        q, k, v = flash_inputs(FLASH_MODEL,
+                               torch.Generator(device).manual_seed(seed))
+        got = flash_attention_fwd(q, k, v, **kw)[:, :, :sq].float()
+        want = flash_attention_plain(q, k, v, **kw)[:, :, :sq].float()
+        errs.append(float((got - want).abs().max()))
         del q, k, v, got, want
+    print(f"[kernels] flash_attention at the model's shape on seeds "
+          f"{SEED + 1}-{SEED + 5} (reported, not held): max |kernel - plain| "
+          f"{errs}", flush=True)
     err_rg = 0.0
     for case in RGLRU_CASES:
         b, s, w, dtype, tol = case
@@ -937,6 +973,11 @@ def phase_smoke_model(device, arch):
           f"> {AGREE})", flush=True)
 
 
+# Function names of the port's CUDA kernels, as the profiler shows them.
+PORT_KERNEL_NAMES = ("flash_fwd", "rglru_scan_kernel", "ssd_scan_kernel",
+                     "wavefront_search", "slot_score", "fused_prepare")
+
+
 def profile_call(fn):
     """Device time by kernel over one warm call of ``fn`` (torch.profiler)
     against its wall time; returns a summary dict, or the reason it could
@@ -974,7 +1015,10 @@ def profile_call(fn):
                 "idle_share": 1 - busy / wall if wall else None,
                 "device_kernels": sum(r[1] for r in rows),
                 "top": [{"ms": r[0], "calls": r[1], "name": r[2]}
-                        for r in rows[:12]]}
+                        for r in rows[:12]],
+                "port_kernels": [{"ms": r[0], "calls": r[1], "name": r[2]}
+                                 for r in rows if any(
+                                     k in r[2] for k in PORT_KERNEL_NAMES)]}
     except Exception as exc:
         return {"not_measured": f"{type(exc).__name__}: {exc}"}
 
@@ -1113,6 +1157,42 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """``flash_fwd_bf16_kernel<256>`` from an Itanium-mangled entry name
+    (``_Z[N]<len><ns><len><name>I<template args>E...``)."""
+    rest, name = re.sub(r"^_ZN?", "", mangled), mangled
+    while (n := re.match(r"\d+", rest)):
+        size = int(n.group())
+        name, rest = rest[n.end():n.end() + size], rest[n.end() + size:]
+    args = re.match(r"I(.*?E)[Ev]", rest)
+    if not args:
+        return name
+    a = re.sub(r"Li(\d+)E", r"\1,", args.group(1))
+    a = a.replace("13__nv_bfloat16", "bf16,")
+    a = "float," + a[1:] if a.startswith("f") else a
+    return f"{name}<{a.rstrip('E,')}>"
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers and spills of each kernel instantiation, from ptxas -v,
+    and whether ptxas serialized its wgmma instructions."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if (m := re.search(r"instructions are serialized.* in the function "
+                           r"'(\w+)'", ln)):
+            out.setdefault(kernel_name(m.group(1)), []).append(
+                "wgmma serialized (C7514)")
+        elif (m := re.search(r"Compiling entry function '(\w+)'", ln)):
+            fn = kernel_name(m.group(1))
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                    r"bytes spill loads", ln)):
+            out.setdefault(fn, []).append(
+                f"spills {m.group(1)}/{m.group(2)} B")
+        elif fn and (m := re.search(r"Used (\d+) registers", ln)):
+            out.setdefault(fn, []).insert(0, f"{m.group(1)} registers")
+    return {k: ", ".join(v) for k, v in out.items()}
+
+
 KERNEL_META = {
     "wavefront_search": ("src/repro_torch/kernels/slot_alloc/csrc/"
                          "wavefront_search.cu",
@@ -1159,9 +1239,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     secs = _lib.build()
-    regs = {k: [ln.strip() for ln in v.splitlines()
-                if "registers" in ln or "spill" in ln]
-            for k, v in _lib.build_log.items()}
+    regs = {k: ptxas_usage(v) for k, v in _lib.build_log.items()}
     print(f"[build] {len(_lib.KERNELS)} kernels built in {secs:.2f} s "
           f"{json.dumps(regs)}", flush=True)
 

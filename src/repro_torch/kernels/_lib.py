@@ -56,7 +56,7 @@ KERNELS = {
                             (_P,) * 7 + (_I,) * 6 + (_P,)),
     # q, k, v, o, batch, hq, hkv, sq, sk, seq_k, head_dim, causal,
     # window (0 = none), bf16, scale, stream
-    "flash_attention": Kernel("flash_attention", (),
+    "flash_attention": Kernel("flash_attention", ("hopper.cuh",),
                               (_P,) * 4 + (_I,) * 10 + (_F, _P)),
     # a, b, y, batch, seq, width, bf16, stream
     "rglru_scan": Kernel("rglru_scan", (), (_P,) * 3 + (_I,) * 4 + (_P,)),

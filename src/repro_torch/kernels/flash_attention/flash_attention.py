@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention`` (the
 Pallas TPU kernel ``flash_attention_fwd``).  :func:`flash_attention_fwd`
-launches ``csrc/flash_attention.cu`` for CUDA tensors and runs the plain
-version (``ref.flash_attention_plain``) for CPU tensors; it never falls
-back from one to the other.
+launches ``csrc/flash_attention.cu`` for CUDA tensors (the wgmma kernel
+for bf16, the CUDA-core kernel for fp32: one kernel per type, one launch
+count) and runs the plain version (``ref.flash_attention_plain``) for CPU
+tensors; it never falls back from one to the other.
 """
 from __future__ import annotations
 

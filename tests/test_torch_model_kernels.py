@@ -3,7 +3,11 @@ flash attention against the Pallas kernel in interpret mode and against
 ``attention_ref``, the RG-LRU scan against the Pallas kernel in
 interpret mode and against ``rglru_ref``, on the shapes and with the
 tolerances of ``tests/test_kernels.py``'s sweeps (plus an MQA, D=256,
-windowed case: the recurrentgemma layout).  Inputs come from a numpy seed.
+windowed case: the recurrentgemma layout, and bf16 cases for every head
+dim of the bf16 kernel: GQA, no window, a window under one key block, Sk
+!= Sq without causality, S not a block multiple).  The Pallas kernel runs
+with the plain version's bf16 key block, so both round the probabilities
+against the same running max.  Inputs come from a numpy seed.
 
 The ``cuda`` tests hold each CUDA kernel against its plain version on
 the card; they skip where ``torch.cuda.is_available()`` is false.  The
@@ -17,7 +21,8 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attention import flash_attention, \
     flash_attention_fwd
-from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.flash_attention.ref import BLOCK_K, BLOCK_Q, \
+    KEY_BLOCK, flash_attention_plain
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_fwd
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_plain
 
@@ -29,6 +34,13 @@ FLASH_CASES = [
     (1, 256, 256, 2, 2, 64, True, None, "bfloat16", 2e-2),
     (1, 96, 96, 4, 4, 32, True, 32, "float32", 2e-5),
     (1, 300, 300, 16, 1, 256, True, 64, "bfloat16", 2e-2),   # MQA, D=256
+    (1, 200, 200, 4, 2, 16, True, None, "bfloat16", 2e-2),
+    (1, 333, 333, 4, 4, 32, True, 100, "bfloat16", 2e-2),
+    (2, 300, 300, 8, 4, 128, True, 48, "bfloat16", 2e-2),    # window < 64
+    (1, 200, 200, 4, 2, 256, True, None, "bfloat16", 2e-2),
+    # Sk != Sq without causality; Sk a block multiple, as the Pallas
+    # wrapper masks no padded key when not causal (seq_k = padded Sk).
+    (2, 100, 192, 4, 2, 128, False, None, "bfloat16", 2e-2),
 ]
 # b, s, w, chunk (of the Pallas kernel), dtype, tol
 RGLRU_CASES = [
@@ -71,7 +83,8 @@ def test_flash_plain_matches_pallas_interpret(ref, case):
     causal, window, dtype, tol = case[6:]
     qkv = _qkv(case, 1)
     want = pallas(*(jnp.asarray(x, getattr(jnp, dtype)) for x in qkv),
-                  causal=causal, window=window, interpret=True)
+                  causal=causal, window=window,
+                  block_k=KEY_BLOCK[torch.bfloat16], interpret=True)
     got = _port_flash(qkv, causal, window, dtype)
     err = np.abs(got - np.asarray(want.astype(jnp.float32))).max()
     assert err < tol, err
@@ -114,14 +127,16 @@ def test_flash_scale_is_applied_once():
 
 
 def test_flash_rejects_what_the_kernel_does_not_take():
-    q = torch.zeros((1, 2, 64, 32))
-    k = torch.zeros((1, 1, 32, 32))
+    q = torch.zeros((1, 2, BLOCK_Q, 32))
+    k = torch.zeros((1, 1, BLOCK_K, 32))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention_fwd(q.half(), k.half(), k.half(), scale=1.0)
     with pytest.raises(ValueError, match="bad shapes"):
-        flash_attention_fwd(q[:, :, :60], k, k, scale=1.0)
+        flash_attention_fwd(q[:, :, :BLOCK_Q - 8], k, k, scale=1.0)
     with pytest.raises(ValueError, match="bad shapes"):
-        flash_attention_fwd(q, k, k, scale=1.0, seq_k=33)
+        flash_attention_fwd(q, k[:, :, 8:], k[:, :, 8:], scale=1.0)
+    with pytest.raises(ValueError, match="bad shapes"):
+        flash_attention_fwd(q, k, k, scale=1.0, seq_k=BLOCK_K + 1)
     with pytest.raises(ValueError, match="window"):
         flash_attention_fwd(q, k, k, scale=1.0, window=0)
 
@@ -204,7 +219,7 @@ def test_cuda_flash_matches_plain(cuda_device, case):
     q, k, v = (torch.tensor(x, device=cuda_device).to(td)
                .transpose(1, 2).contiguous() for x in _qkv(
                    (b, sq, sk, hq, hkv, d), 10))
-    pq, pk = (-sq) % 64, (-sk) % 32
+    pq, pk = (-sq) % BLOCK_Q, (-sk) % BLOCK_K
     q = torch.nn.functional.pad(q, (0, 0, 0, pq))
     k = torch.nn.functional.pad(k, (0, 0, 0, pk))
     v = torch.nn.functional.pad(v, (0, 0, 0, pk))
