@@ -8,7 +8,8 @@ CUDA.  It imports nothing of JAX or of the JAX package ``repro``.
 Phases (each prints its lines; any failure exits non-zero):
 
 1. build — compile the six kernels from ``src/repro_torch/kernels/*/csrc``
-   (one nvcc each, in parallel);
+   (one nvcc each, in parallel); registers, spills and any serialized
+   wgmma per instantiation; the SSD wgmma kernel must have neither;
 2. kernels — wavefront search, slot scoring and fused prepare against
    their plain PyTorch versions on the card, bit-equal, at the paper mesh
    (8x8x4) with 16 and 32 slots and batches of 64, 1000 and 1024, on
@@ -20,9 +21,12 @@ Phases (each prints its lines; any failure exits non-zero):
    x (4, 8192, 24, 64) bf16 with B/C (4, 8192, 128) as column views of
    one conv output) and at odd ones (S not a block or chunk multiple,
    GQA, no window, fp32; the bf16 attention kernel at every head dim),
-   to the tolerances of tests/test_kernels.py; times at the models'
-   shapes, and SDPA on the same mask as the attention's library time;
-   the attention at its model shape on five more seeds, reported;
+   to the tolerances of tests/test_kernels.py, printing which SSD kernel
+   (wgmma or CUDA cores) and how many segments each case ran; times at
+   the models' shapes, both counts of the SSD bound, and SDPA on the same
+   mask as the attention's library time; the attention at its model
+   shape on five more seeds, reported, with |SDPA - plain| on all six;
+   the SSD scan at its model shape on five more seeds, held per head;
 4. slice — ``NomFabric(mesh=PAPER_MESH, n_slots=16)`` with the fused,
    host and auto allocator backends, and a NoM-Light fabric, on one seeded
    stream of 4096 transfers (copies of 512 B-64 KB with 0-3 extra slots,
@@ -638,14 +642,26 @@ def ssd_work(b, s, h, hd, n, dtype, chunk):
     return (nbytes, cb, rest) if dtype == "bfloat16" else (nbytes, 0, cb + rest)
 
 
-def ssd_bound(case):
+# The rate of a product with one fp32 and one bf16 operand: the fp32 one
+# split exactly into three bf16 pieces, one tensor-core pass each (the
+# wgmma kernel's method; PR 14's count priced it at the CUDA-core rate).
+SPLIT3_OPS_PER_S = BF16_OPS_PER_S / 3
+
+
+def ssd_bound(case, fp32_rate=SPLIT3_OPS_PER_S):
     """The least time of the SSD scan: its bytes over the memory rate, or
     its operations over their types' rates, at the chunk that needs the
     fewest (q = 1, since the work grows with q), whichever is larger.
-    Returns (ms, by, bytes, FLOPs)."""
+    The fp32-operand products go at ``fp32_rate``: a third of the bf16
+    tensor rate for bf16 inputs (each fp32 operand in three exact bf16
+    pieces), and for fp32 inputs, whose products would take nine, the
+    CUDA-core rate.  ``ALU_OPS_PER_S`` gives PR 14's count.  Returns (ms,
+    by, bytes, FLOPs)."""
     nbytes, ops16, ops32 = ssd_work(*case[:6], 1)
+    if case[5] != "bfloat16":
+        fp32_rate = ALU_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (ops16 / BF16_OPS_PER_S + ops32 / ALU_OPS_PER_S) * 1e3
+    t_ops = (ops16 / BF16_OPS_PER_S + ops32 / fp32_rate) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes, ops16 + ops32)
 
@@ -690,6 +706,7 @@ def phase_model_kernels(device):
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_plain
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import CHUNK, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan.ssd_scan import plan as ssd_plan
     gen = torch.Generator(device).manual_seed(SEED)
     rows = {}
     err_fa = 0.0
@@ -763,16 +780,26 @@ def phase_model_kernels(device):
     kw = dict(causal=True, window=FLASH_MODEL[7], scale=1.0,
               seq_k=FLASH_MODEL[2])
     errs, sq = [], FLASH_MODEL[1]
+    sdpa_errs = [sdpa_err]           # the script's seed, then five more
     for seed in range(SEED + 1, SEED + 6):
         q, k, v = flash_inputs(FLASH_MODEL,
                                torch.Generator(device).manual_seed(seed))
         got = flash_attention_fwd(q, k, v, **kw)[:, :, :sq].float()
         want = flash_attention_plain(q, k, v, **kw)[:, :, :sq].float()
         errs.append(float((got - want).abs().max()))
-        del q, k, v, got, want
+        qp = torch.arange(q.shape[2], device=device)[:, None]
+        kp = torch.arange(k.shape[2], device=device)[None, :]
+        mask = (kp <= qp) & (qp - kp < kw["window"]) & (kp < kw["seq_k"])
+        hq = FLASH_MODEL[3]
+        sdpa = F.scaled_dot_product_attention(
+            q, k.expand(-1, hq, -1, -1), v.expand(-1, hq, -1, -1),
+            attn_mask=mask, scale=1.0)[:, :, :sq].float()
+        sdpa_errs.append(float((sdpa - want).abs().max()))
+        del q, k, v, got, want, sdpa, mask
     print(f"[kernels] flash_attention at the model's shape on seeds "
           f"{SEED + 1}-{SEED + 5} (reported, not held): max |kernel - plain| "
-          f"{errs}", flush=True)
+          f"{errs}; |SDPA - plain| on seeds {SEED}-{SEED + 5}: {sdpa_errs}",
+          flush=True)
     err_rg = 0.0
     for case in RGLRU_CASES:
         b, s, w, dtype, tol = case
@@ -803,25 +830,46 @@ def phase_model_kernels(device):
         print(line, flush=True)
         del a, bb, got, want
     err_ssd = 0.0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def ssd_run(args):
+        """The kernel's output, the plain version's (with the kernel's
+        segments) and the (kernel, segments) that the wrapper's rule gave
+        the call."""
+        s = args[0].shape[1]
+        pad = (-s) % CHUNK
+        seen = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
+                for t in args[:4]]
+        x, _, B, C = seen
+        how = ssd_plan(x.dtype, x.shape[3], B.shape[2],
+                       (*x.stride()[:3], *B.stride()[:2], *C.stride()[:2]),
+                       (x.data_ptr(), B.data_ptr(), C.data_ptr()),
+                       batch=x.shape[0], heads=x.shape[2], seq=s + pad,
+                       sms=sms)
+        got = ssd_scan(*args)
+        want = ssd_scan_plain(*seen, args[4], segments=how[1])[:, :s]
+        return got, want, how
+
+    def worst_head(got, want):
+        """max |d| / max |plain| within each head, the worst head's."""
+        d, w = (got.float() - want.float()).abs(), want.float().abs()
+        return (d.amax((0, 1, 3)) / w.amax((0, 1, 3))).max().item(), d, w
+
     for case in SSD_CASES:
         b, s, h, hd, n, dtype, tol = case
         args = ssd_inputs(case, gen, device)
-        got = ssd_scan(*args)
-        pad = (-s) % CHUNK
-        padded = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2)
-                                          + (0, pad)) for t in args[:4]]
-        want = ssd_scan_plain(*padded, args[4])[:, :s]
+        got, want, how = ssd_run(args)
         err = float((got.float() - want.float()).abs().max())
         rel = err / float(want.float().abs().max())
         check(math.isfinite(rel) and rel < tol and got.shape == want.shape,
               f"ssd_scan != plain at {case}: relative {rel}")
         err_ssd = max(err_ssd, err)
         line = (f"[kernels] ssd_scan b={b} s={s} h={h} hd={hd} n={n} "
-                f"{dtype}: max |kernel - plain| {err:.3g}, / max |plain| "
-                f"{rel:.3g} < {tol}")
+                f"{dtype} on the {how[0]} kernel in {how[1]} segment(s): "
+                f"max |kernel - plain| {err:.3g}, / max |plain| {rel:.3g} "
+                f"< {tol}")
         if case is SSD_MODEL:
-            d, w = (got.float() - want.float()).abs(), want.float().abs()
-            head = (d.amax((0, 1, 3)) / w.amax((0, 1, 3))).max().item()
+            head, d, w = worst_head(got, want)
             check(math.isfinite(head) and head < SSD_MODEL_TOL,
                   f"ssd_scan != plain at the model's shape: worst head "
                   f"{head} >= {SSD_MODEL_TOL}")
@@ -830,22 +878,44 @@ def phase_model_kernels(device):
                      f"|plain| {(d.mean() / w.mean()).item():.3g}")
             del d, w
             bnd, by, nbytes, ops = ssd_bound(case)
+            old_bnd, old_by, _, _ = ssd_bound(case, ALU_OPS_PER_S)
             _, k16, k32 = ssd_work(*case[:6], CHUNK)
-            k_ms = (k16 / BF16_OPS_PER_S + k32 / ALU_OPS_PER_S) * 1e3
+            k_ms = (k16 / BF16_OPS_PER_S + k32 / SPLIT3_OPS_PER_S) * 1e3
+            segs = how[1]
             rows["ssd_scan"] = {
                 "ms": ms_per_call(lambda: ssd_scan(*args), 20, device),
-                "plain_ms": ms_per_call(lambda: ssd_scan_plain(*args), 3,
-                                        device),
+                "plain_ms": ms_per_call(
+                    lambda: ssd_scan_plain(*args, segments=segs), 3, device),
                 "library_ms": None, "bound_ms": bnd, "bound_by": by,
                 "bytes": nbytes, "ops": ops}
-            line += (f"; kernel "
-                     f"{rows['ssd_scan']['ms']:.4g} ms, plain "
+            ms = rows["ssd_scan"]["ms"]
+            line += (f"; kernel {ms:.4g} ms, plain "
                      f"{rows['ssd_scan']['plain_ms']:.4g} ms, bound "
-                     f"{bnd:.4g} ms by {by} ({nbytes / 1e6:.1f} MB, "
-                     f"{ops / 1e9:.2f} GFLOP at chunk 1; the operations "
-                     f"at the kernel's chunk {CHUNK} take {k_ms:.4g} ms)")
+                     f"{bnd:.4g} ms by {by} (fp32-operand products at a "
+                     f"third of the bf16 tensor rate; {ms / bnd:.3g}x) and "
+                     f"PR 14's count {old_bnd:.4g} ms by {old_by} (at the "
+                     f"CUDA-core rate; {ms / old_bnd:.3g}x); "
+                     f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP at chunk "
+                     f"1; the operations at the kernel's chunk {CHUNK} take "
+                     f"{k_ms:.4g} ms")
         print(line, flush=True)
-        del args, got, want, padded
+        del args, got, want
+    # The model's shape on five more seeds, each held under SSD_MODEL_TOL.
+    heads = []
+    for seed in range(SEED + 1, SEED + 6):
+        args = ssd_inputs(SSD_MODEL, torch.Generator(device).manual_seed(seed),
+                          device)
+        got, want, _ = ssd_run(args)
+        head = worst_head(got, want)[0]
+        check(math.isfinite(head) and head < SSD_MODEL_TOL,
+              f"ssd_scan != plain at the model's shape on seed {seed}: worst "
+              f"head {head} >= {SSD_MODEL_TOL}")
+        heads.append(round(head, 6))
+        err_ssd = max(err_ssd, float((got.float() - want.float()).abs().max()))
+        del args, got, want
+    print(f"[kernels] ssd_scan at the model's shape on seeds {SEED + 1}-"
+          f"{SEED + 5} (held): worst head {heads}, each < {SSD_MODEL_TOL}",
+          flush=True)
     torch.cuda.empty_cache()
     return rows, {"flash_attention": err_fa, "rglru_scan": err_rg,
                   "ssd_scan": err_ssd}
@@ -975,7 +1045,8 @@ def phase_smoke_model(device, arch):
 
 # Function names of the port's CUDA kernels, as the profiler shows them.
 PORT_KERNEL_NAMES = ("flash_fwd", "rglru_scan_kernel", "ssd_scan_kernel",
-                     "wavefront_search", "slot_score", "fused_prepare")
+                     "ssd_tc_kernel", "wavefront_search", "slot_score",
+                     "fused_prepare")
 
 
 def profile_call(fn):
@@ -1168,6 +1239,7 @@ def kernel_name(mangled: str) -> str:
     if not args:
         return name
     a = re.sub(r"Li(\d+)E", r"\1,", args.group(1))
+    a = a.replace("Lb0E", "false,").replace("Lb1E", "true,")
     a = a.replace("13__nv_bfloat16", "bf16,")
     a = "float," + a[1:] if a.startswith("f") else a
     return f"{name}<{a.rstrip('E,')}>"
@@ -1175,13 +1247,20 @@ def kernel_name(mangled: str) -> str:
 
 def ptxas_usage(log: str) -> dict:
     """Registers and spills of each kernel instantiation, from ptxas -v,
-    and whether ptxas serialized its wgmma instructions."""
+    whether ptxas serialized its wgmma instructions, and the waits or
+    arrivals it injected around them."""
     out, fn = {}, None
     for ln in log.splitlines():
         if (m := re.search(r"instructions are serialized.* in the function "
                            r"'(\w+)'", ln)):
             out.setdefault(kernel_name(m.group(1)), []).append(
                 "wgmma serialized (C7514)")
+        elif (m := re.search(r"\((C75\d\d)\) (warpgroup\.\w+) is injected"
+                             r".* in function '(\w+)'", ln)):
+            note = f"{m.group(2)} injected ({m.group(1)})"
+            notes = out.setdefault(kernel_name(m.group(3)), [])
+            if note not in notes:
+                notes.append(note)
         elif (m := re.search(r"Compiling entry function '(\w+)'", ln)):
             fn = kernel_name(m.group(1))
         elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
@@ -1242,6 +1321,12 @@ def main() -> int:
     regs = {k: ptxas_usage(v) for k, v in _lib.build_log.items()}
     print(f"[build] {len(_lib.KERNELS)} kernels built in {secs:.2f} s "
           f"{json.dumps(regs)}", flush=True)
+    for fn, use in regs.get("ssd_scan", {}).items():
+        check(not fn.startswith("ssd_tc_kernel") or (
+            "serialized" not in use and not re.search(r"spills (?!0/0 B)",
+                                                      use)),
+              f"the SSD wgmma kernel {fn} spills or has its wgmma "
+              f"serialized: {use}")
 
     rows, max_err = phase_kernels(PAPER_MESH, device)
     model_rows, model_err = phase_model_kernels(device)

@@ -39,31 +39,32 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 @dataclasses.dataclass(frozen=True)
 class Kernel:
     package: str                 # kernels/<package>/csrc/<name>.cu
-    headers: tuple[str, ...]     # csrc headers the source includes
+    headers: tuple[str, ...]     # headers it includes, relative to kernels/
     argtypes: tuple              # C entry point arguments, stream last
 
 
+_SLOT_H = ("slot_alloc/csrc/slot_alloc.cuh",)
 KERNELS = {
     # occ, srcs, dsts, init, out, batch, X, Y, Z, n_slots, threads, stream
-    "wavefront_search": Kernel("slot_alloc", ("slot_alloc.cuh",),
+    "wavefront_search": Kernel("slot_alloc", _SLOT_H,
                                (_P,) * 5 + (_I,) * 6 + (_P,)),
     # avail, dists, t_ready, cost, batch, n_slots, stream
-    "slot_score": Kernel("slot_alloc", ("slot_alloc.cuh",),
-                         (_P,) * 4 + (_I,) * 2 + (_P,)),
+    "slot_score": Kernel("slot_alloc", _SLOT_H, (_P,) * 4 + (_I,) * 2 + (_P,)),
     # occ, srcs, dsts, t_ready, ints, flags, vecs, batch, X, Y, Z,
     # n_slots, threads, stream
-    "fused_prepare": Kernel("slot_alloc", ("slot_alloc.cuh",),
+    "fused_prepare": Kernel("slot_alloc", _SLOT_H,
                             (_P,) * 7 + (_I,) * 6 + (_P,)),
     # q, k, v, o, batch, hq, hkv, sq, sk, seq_k, head_dim, causal,
     # window (0 = none), bf16, scale, stream
-    "flash_attention": Kernel("flash_attention", ("hopper.cuh",),
+    "flash_attention": Kernel("flash_attention", ("csrc/hopper.cuh",),
                               (_P,) * 4 + (_I,) * 10 + (_F, _P)),
     # a, b, y, batch, seq, width, bf16, stream
     "rglru_scan": Kernel("rglru_scan", (), (_P,) * 3 + (_I,) * 4 + (_P,)),
-    # x, dt, B, C, A, y, batch, seq, heads, head_dim, d_state, x strides
-    # (3), dt strides (3), B strides (2), C strides (2), bf16, stream
-    "ssd_scan": Kernel("ssd_scan", (),
-                       (_P,) * 6 + (_I,) * 5 + (_L,) * 10 + (_I, _P)),
+    # x, dt, B, C, A, y, ends, logs, batch, seq, heads, head_dim, d_state,
+    # x strides (3), dt strides (3), B strides (2), C strides (2), bf16,
+    # kernel (0 CUDA cores, 1 wgmma), chunks per segment, stream
+    "ssd_scan": Kernel("ssd_scan", ("csrc/hopper.cuh",),
+                       (_P,) * 8 + (_I,) * 5 + (_L,) * 10 + (_I,) * 3 + (_P,)),
 }
 
 # Launches per kernel since the last reset (only real kernel launches:
@@ -95,9 +96,11 @@ def source(name: str) -> Path:
 
 
 def _lib_path(name: str) -> Path:
-    csrc = source(name).parent
+    """The library's path, named after a hash of its source, every header
+    it includes (its own ``csrc/`` ones and the shared ``kernels/csrc/``
+    ones) and the flags, so an edit to any of them builds it anew."""
     h = hashlib.sha256()
-    for part in (*(csrc / f for f in KERNELS[name].headers), source(name)):
+    for part in (*(PKG / f for f in KERNELS[name].headers), source(name)):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -75,7 +75,7 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "hopper.cuh"
+#include "../../csrc/hopper.cuh"
 
 namespace {
 
@@ -242,11 +242,6 @@ struct Bf16Tiles {
       1024 + kQBytes + 2 * kStages * kKVBytes + 8 * kBarriers;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo: low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Named barriers (0 is __syncthreads): per consumer warpgroup, one for
 // its own 128 threads and one that orders its turns on the tensor cores.
 constexpr int kBarScaleQ = 1;   // + warpgroup
@@ -256,13 +251,6 @@ template <bool B>
 struct Bool {
   static constexpr bool value = B;
 };
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreadsBf16, 1)
@@ -373,7 +361,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
         }
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      named_sync(kBarScaleQ + wg, 128);
+      hopper::named_sync(kBarScaleQ + wg, 128);
     }
 
     const uint32_t q_base = hopper::smem_addr(qs) + wg * 64 * L::kRowBytes;
@@ -402,7 +390,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
         const uint64_t db = hopper::make_desc(
             k_tile + box * L::kKVBoxBytes + col, 16, 8 * L::kRowBytes,
             L::kSwizzle);
-        hopper::wgmma_ss_m64n64k16(sc, da, db, kk > 0);
+        hopper::wgmma_ss<64>(sc, da, db, kk > 0);
       }
       hopper::wgmma_commit();
     };
@@ -474,7 +462,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
       uint32_t pa[4][4];
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
-        pa[i / 8][(i % 8) / 2] = pack_bf16(sc[i], sc[i + 1]);
+        pa[i / 8][(i % 8) / 2] = hopper::pack_bf16(sc[i], sc[i + 1]);
       }
       if constexpr (kNext) {
         hopper::mbar_wait(&k_full[(j + 1) % kStages],
@@ -483,14 +471,14 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
       hopper::mbar_wait(&v_full[j % kStages], (j / kStages) & 1);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
-      named_sync(kBarTurn + wg, 256);
+      hopper::named_sync(kBarTurn + wg, 256);
       hopper::fence_regs(sc);
       hopper::fence_regs(acc);
       hopper::fence_regs(pa);
       hopper::wgmma_fence();
       if constexpr (kNext) mma_scores(j + 1);
       mma_pv(j, pa);
-      named_arrive(kBarTurn + 1 - wg, 256);
+      hopper::named_arrive(kBarTurn + 1 - wg, 256);
       if constexpr (kNext) {
         hopper::wgmma_wait<1>();     // S of block j + 1; P·V runs on
         hopper::mbar_arrive(&k_empty[(j + 1) % kStages]);
@@ -503,14 +491,14 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     };
 
     // Warpgroup 0 takes the first turn.
-    if (wg == 0) named_arrive(kBarTurn, 256);
+    if (wg == 0) hopper::named_arrive(kBarTurn, 256);
     if (n_blocks > 0) {
       hopper::mbar_wait(&k_full[0], 0);
-      named_sync(kBarTurn + wg, 256);
+      hopper::named_sync(kBarTurn + wg, 256);
       hopper::fence_regs(sc);
       hopper::wgmma_fence();
       mma_scores(0);
-      named_arrive(kBarTurn + 1 - wg, 256);
+      hopper::named_arrive(kBarTurn + 1 - wg, 256);
       hopper::wgmma_wait<0>();
       hopper::mbar_arrive(&k_empty[0]);
       softmax(0);
@@ -530,9 +518,9 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 #pragma unroll
     for (int n8 = 0; n8 < D / 8; ++n8) {
       *reinterpret_cast<uint32_t*>(out + n8 * 8) =
-          pack_bf16(acc[4 * n8] / l[0], acc[4 * n8 + 1] / l[0]);
+          hopper::pack_bf16(acc[4 * n8] / l[0], acc[4 * n8 + 1] / l[0]);
       *reinterpret_cast<uint32_t*>(out + 8 * D + n8 * 8) =
-          pack_bf16(acc[4 * n8 + 2] / l[1], acc[4 * n8 + 3] / l[1]);
+          hopper::pack_bf16(acc[4 * n8 + 2] / l[1], acc[4 * n8 + 3] / l[1]);
     }
   }
 }
@@ -540,41 +528,13 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (libcuda), looked up through the runtime's entry
-// point query, so nothing links -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // A (rows, D) bf16 row-major tensor read in boxes of `box_rows` x
 // min(D, 64) columns, swizzled to the box's row width.
 template <int D>
 bool encode_map(CUtensorMap* map, const void* ptr, uint64_t rows,
                 uint32_t box_rows) {
   using L = Bf16Tiles<D>;
-  const EncodeTiled encode = encode_tiled();
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), rows};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};

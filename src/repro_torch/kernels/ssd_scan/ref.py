@@ -13,7 +13,15 @@ state carried across chunks from zero::
     state = state * exp(cum_last) + (x * dt * exp(cum_last - cum))^T B
 
 Every chunk's intra-chunk products run batched; only the state carry
-walks the chunks in order.
+walks the chunks in order.  With ``segments`` > 1 the carry follows the
+bf16 kernel's decomposition: the chunks are cut into segments of
+``segment_chunks`` whole chunks, each segment's end state is summed from
+a zero state, with its total decay exp(sum of its chunks' cum_last), and
+the segments' carried-in states are chained from those in order.  That
+changes only the order of the sums.
+
+:func:`split_bf16x3` is the kernel's exact split of an fp32 operand into
+three bf16 pieces, one tensor-core product each.
 """
 from __future__ import annotations
 
@@ -22,11 +30,30 @@ import torch
 CHUNK = 64      # csrc/ssd_scan.cu kChunk: S must be a multiple
 
 
+def segment_chunks(n_chunks: int, segments: int) -> int:
+    """Chunks per segment when ``n_chunks`` are cut into at most
+    ``segments`` segments of whole chunks (the last may be shorter)."""
+    return max(1, -(-n_chunks // max(1, segments)))
+
+
+def split_bf16x3(v: torch.Tensor):
+    """(hi, mid, lo) in bf16 with hi + mid + lo == v exactly for fp32 v
+    (pieces below fp32's normal range aside): hi = bf16(v), mid =
+    bf16(v - hi), lo = bf16(v - hi - mid); each remainder is exact in
+    fp32, and lo holds the last 8 of v's 24 significant bits."""
+    v = v.float()
+    hi = v.bfloat16()
+    r = v - hi.float()
+    mid = r.bfloat16()
+    return hi, mid, (r - mid.float()).bfloat16()
+
+
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
-                   C: torch.Tensor, A: torch.Tensor, *, chunk: int = CHUNK
-                   ) -> torch.Tensor:
+                   C: torch.Tensor, A: torch.Tensor, *, chunk: int = CHUNK,
+                   segments: int = 1) -> torch.Tensor:
     """x (b, S, H, hd); dt (b, S, H); B/C (b, S, n), shared by the heads;
-    A (H,); S % chunk == 0.  Returns y (b, S, H, hd) in x's type."""
+    A (H,); S % chunk == 0.  ``segments``: the carry's segments (above).
+    Returns y (b, S, H, hd) in x's type."""
     b, s, h, hd = x.shape
     n = B.shape[-1]
     nc = s // chunk
@@ -46,12 +73,27 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     y = M @ xf
     w = dtf * torch.exp(cum[..., -1:] - cum)
     new = (xf * w[..., None]).transpose(-1, -2) @ Bf[:, :, None]  # b,c,h,p,n
-    decay = torch.exp(cum[..., -1])                               # b,c,h
-    state = torch.zeros((b, h, hd, n), dtype=torch.float32, device=x.device)
+    decay = torch.exp(cum[..., -1])[..., None, None]              # b,c,h,1,1
+    zero = torch.zeros((b, h, hd, n), dtype=torch.float32, device=x.device)
+    per = segment_chunks(nc, segments)
+    starts = range(0, nc, per)
+    # Each segment's end state from zero, and its total decay.
+    ends = []
+    for c0 in starts[:-1]:
+        state = zero
+        for c in range(c0, c0 + per):
+            state = state * decay[:, c] + new[:, c]
+        ends.append((state, torch.exp(cum[:, c0:c0 + per, :, -1].sum(1))))
     prior = torch.empty_like(new)
-    for c in range(nc):
-        prior[:, c] = state
-        state = state * decay[:, c, :, None, None] + new[:, c]
+    carry = zero
+    for k, c0 in enumerate(starts):
+        if k:
+            end, total = ends[k - 1]
+            carry = carry * total[..., None, None] + end
+        state = carry
+        for c in range(c0, min(c0 + per, nc)):
+            prior[:, c] = state
+            state = state * decay[:, c] + new[:, c]
     y = y + torch.exp(cum)[..., None] * (Cf[:, :, None]
                                          @ prior.transpose(-1, -2))
     return y.transpose(2, 3).reshape(b, s, h, hd).to(x.dtype)

@@ -5,8 +5,12 @@ per-token recurrence), on the shapes and with the tolerances of
 / max |want|); then the wrapper's padding, layout and refusals.  Inputs
 come from a numpy seed.
 
-The ``cuda`` test holds the CUDA kernel against the plain version on the
-card; it skips where ``torch.cuda.is_available()`` is false.  The
+Then the kernels' decomposition, held on the CPU: the plain version's
+segment carry against ``ssd_ref``, the exact bf16 split of fp32
+operands, the dispatch rule (``plan``) and the build's header hash.
+
+The ``cuda`` tests hold both CUDA kernels against the plain version on
+the card; they skip where ``torch.cuda.is_available()`` is false.  The
 reference imports happen in a fixture, so the file also collects on a
 machine without JAX (where only the ``cuda`` test runs).
 """
@@ -16,9 +20,13 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import re
+
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_fwd
-from repro_torch.kernels.ssd_scan.ref import CHUNK, ssd_scan_plain
+from repro_torch.kernels.ssd_scan.ref import (CHUNK, segment_chunks,
+                                              split_bf16x3, ssd_scan_plain)
+from repro_torch.kernels.ssd_scan.ssd_scan import plan
 
 # b, s, h, hd, n, chunk (of the Pallas kernel), dtype, tol
 SWEEP = [
@@ -185,6 +193,98 @@ def test_plain_version_launches_nothing_on_cpu():
     assert dict(_lib.launch_counts) == before
 
 
+@pytest.mark.parametrize("chunks", [5, 7])
+@pytest.mark.parametrize("segments", [1, 2, 4])
+def test_plain_segments_match_ssd_ref(ref, segments, chunks):
+    """The kernel's segment carry (end states from zero, chained in
+    order) changes only the rounding: against the oracle at the sweep's
+    fp32 tolerance, S a multiple of no segment but one."""
+    inputs = _inputs(2, chunks * CHUNK, 3, 16, 32, 9)
+    x, dt, B, C, A = (torch.tensor(a) for a in inputs)
+    got = ssd_scan_plain(x, dt, B, C, A, segments=segments)
+    assert _rel(got, _oracle(ref, inputs)) < 1e-4
+
+
+@pytest.mark.parametrize("scale", [1e-6, 1.0, 1e6])
+def test_split_bf16x3_is_exact(scale):
+    """hi + mid + lo rebuilds every fp32 input bit for bit, and a
+    product through the pieces (three bf16 x bf16 products, each exact
+    in fp32, summed in fp32) is within 2^-22 of the fp32 product."""
+    rng = np.random.default_rng(10)
+    v = torch.tensor((rng.standard_normal(4096)
+                      * np.exp(rng.uniform(-8, 8, 4096)) * scale)
+                     .astype(np.float32))
+    hi, mid, lo = split_bf16x3(v)
+    assert all(p.dtype == torch.bfloat16 for p in (hi, mid, lo))
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), v)
+    w = torch.tensor(rng.standard_normal(4096).astype(np.float32)).bfloat16()
+    got = (hi.float() * w.float() + mid.float() * w.float()) \
+        + lo.float() * w.float()
+    exact = v.double() * w.double()
+    assert float(((got.double() - exact).abs()
+                  / exact.abs().clamp_min(1e-300)).max()) <= 2 ** -22
+
+
+MODEL_STRIDES = (8192 * 1792, 1792, 64, 8192 * 1792, 1792, 8192 * 1792, 1792)
+
+
+@pytest.mark.parametrize("case", [
+    # dtype, hd, n, strides (x 3, B 2, C 2), address offset in bytes,
+    # (batch, heads, seq), segments asked, expected (kernel, segments)
+    ("bfloat16", 64, 128, MODEL_STRIDES, 0, (4, 24, 8192), None,
+     ("wgmma", 8)),                       # mamba2-130m: 384 CTAs, 3 waves
+    ("bfloat16", 16, 16, (80 * 128, 128, 16, 80 * 16, 16, 80 * 16, 16), 0,
+     (2, 8, 128), None, ("wgmma", 2)),    # mamba2-smoke: one per chunk
+    ("bfloat16", 32, 16, (256 * 64, 64, 32, 256 * 16, 16, 256 * 16, 16), 0,
+     (1, 2, 256), 3, ("wgmma", 2)),       # 4 chunks: segments of 2
+    ("bfloat16", 64, 128, MODEL_STRIDES, 0, (1, 2, 256), 100,
+     ("wgmma", 4)),                       # at most one segment per chunk
+    ("float32", 64, 128, MODEL_STRIDES, 0, (4, 24, 8192), None,
+     ("cuda_core", 1)),                   # fp32: the CUDA-core kernel
+    ("bfloat16", 48, 128, MODEL_STRIDES, 0, (4, 24, 8192), None,
+     ("cuda_core", 1)),                   # hd outside the wgmma set
+    ("bfloat16", 64, 96, MODEL_STRIDES, 0, (4, 24, 8192), None,
+     ("cuda_core", 1)),                   # n outside the wgmma set
+    ("bfloat16", 64, 128, MODEL_STRIDES, 2, (4, 24, 8192), None,
+     ("cuda_core", 1)),                   # base not 16-byte aligned
+    ("bfloat16", 64, 128, (8192 * 1790, 1790, 64, 8192 * 1790, 1790,
+                           8192 * 1790, 1790), 0, (4, 24, 8192), None,
+     ("cuda_core", 1)),                   # row stride 3580 B: no TMA
+])
+def test_dispatch_rule(case):
+    dtype, hd, n, strides, off, (b, h, s), segments, want = case
+    got = plan(getattr(torch, dtype), hd, n, strides,
+               (4096 + off, 8192, 8448), batch=b, heads=h, seq=s, sms=132,
+               segments=segments)
+    assert got == want
+    kernel, segs = got
+    if kernel == "wgmma" and segments is None:
+        assert -(-h // 2) * b * segs >= 2 * 132 or segs == s // CHUNK
+    assert segment_chunks(s // CHUNK, segs) * segs >= s // CHUNK
+
+
+@pytest.mark.parametrize("case", [("bfloat16", 64, 6), ("float32", 6, 16),
+                                  ("bfloat16", 18, 16)])
+def test_dispatch_rule_refuses(case):
+    dtype, hd, n = case
+    with pytest.raises(ValueError, match="no SSD kernel takes"):
+        plan(getattr(torch, dtype), hd, n, (8,) * 7, (0, 0, 0), batch=1,
+             heads=2, seq=128, sms=132)
+
+
+@pytest.mark.parametrize("name", sorted(_lib.KERNELS))
+def test_build_hash_covers_every_included_header(name):
+    """Every header a kernel's source includes (its own and the shared
+    kernels/csrc/ ones) is hashed into its library's name, so an edit to
+    a header rebuilds every kernel that includes it."""
+    src = _lib.source(name)
+    included = {(src.parent / inc).resolve() for inc in re.findall(
+        r'^#include "([^"]+)"', src.read_text(), re.M)}
+    listed = {(_lib.PKG / h).resolve() for h in _lib.KERNELS[name].headers}
+    assert included == listed
+    assert all(p.exists() for p in listed)
+
+
 # --- on the card ---------------------------------------------------------------
 CUDA_CASES = [c[:5] + c[6:] for c in SWEEP] + [
     (2, 200, 3, 64, 128, "float32", 1e-4),      # S not a chunk multiple
@@ -219,3 +319,48 @@ def test_cuda_ssd_scan_matches_plain(cuda_device, case):
     rel = ((got.float() - want.float()).abs().max()
            / want.float().abs().max()).item()
     assert rel < tol, rel
+
+
+# b, s, h, hd, n, segments (None: plan's), x/B/C as column views of one
+# tensor (the model's layout)
+TC_CASES = [
+    (2, 320, 3, 16, 16, 1, False), (2, 320, 3, 16, 16, 3, True),
+    (1, 256, 2, 32, 16, 1, True), (1, 256, 2, 32, 16, 2, False),
+    (1, 1024, 24, 64, 128, 1, True), (1, 1024, 24, 64, 128, None, True),
+    (2, 200, 5, 64, 128, 2, True),              # odd H, S not a chunk multiple
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES)
+def test_cuda_wgmma_ssd_scan_matches_plain(cuda_device, case):
+    """The wgmma kernel (bf16), in one segment and in several, against
+    the plain version with the same segments, at the bf16 sweep's 5e-2
+    and, per head, at chip_smoke's 1e-2."""
+    b, s, h, hd, n, segments, views = case
+    x, dt, B, C, A = (torch.tensor(a, device=cuda_device)
+                      for a in _inputs(b, s, h, hd, n, 11))
+    if views:
+        xbc = torch.cat([x.flatten(2), B, C], -1).bfloat16()
+        x = xbc[..., :h * hd].unflatten(-1, (h, hd))
+        B, C = xbc[..., h * hd:h * hd + n], xbc[..., h * hd + n:]
+    else:
+        x, B, C = x.bfloat16(), B.bfloat16(), C.bfloat16()
+    pad = (-s) % CHUNK
+    padded = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+              for t in (x, dt, B, C)]
+    kernel, segs = plan(torch.bfloat16, hd, n,
+                        (*padded[0].stride()[:3], *padded[2].stride()[:2],
+                         *padded[3].stride()[:2]),
+                        (t.data_ptr() for t in (padded[0], *padded[2:])),
+                        batch=b, heads=h, seq=s + pad, sms=132,
+                        segments=segments)
+    assert kernel == "wgmma"
+    before = _lib.launch_counts["ssd_scan"]
+    got = ssd_scan_fwd(*padded, A, segments=segments)[:, :s]
+    want = ssd_scan_plain(*padded, A, segments=segs)[:, :s]
+    torch.cuda.synchronize()
+    assert _lib.launch_counts["ssd_scan"] == before + 1
+    d, w = (got.float() - want.float()).abs(), want.float().abs()
+    assert (d.max() / w.max()).item() < 5e-2
+    assert (d.amax((0, 1, 3)) / w.amax((0, 1, 3))).max().item() < 1e-2
