@@ -26,7 +26,11 @@ Phases (each prints its lines; any failure exits non-zero):
    the models' shapes, both counts of the SSD bound, and SDPA on the same
    mask as the attention's library time; the attention at its model
    shape on five more seeds, reported, with |SDPA - plain| on all six;
-   the SSD scan at its model shape on five more seeds, held per head;
+   the SSD scan at its model shape on five more seeds, held per head,
+   with the wgmma kernel timed at segment counts beside the rule's; every
+   bf16 SSD result held to the plain version's fp32 result beyond bf16's
+   own rounding (``SSD_EXACT_TOL``), which a kernel that rounds its fp32
+   operands to bf16 or TF32 exceeds;
 4. slice — ``NomFabric(mesh=PAPER_MESH, n_slots=16)`` with the fused,
    host and auto allocator backends, and a NoM-Light fabric, on one seeded
    stream of 4096 transfers (copies of 512 B-64 KB with 0-3 extra slots,
@@ -593,19 +597,32 @@ RGLRU_CASES = [RGLRU_MODEL, (2, 200, 128, "float32", 1e-5),
 # (b, s, h, hd, n, dtype, tol on max |d| / max |plain|, the sweep's own
 # measure): the model's prefill shape (mamba2-130m, B=4 x S=8192), the
 # four of test_ssd_scan_sweep, then S not a multiple of the chunk and the
-# smoke model's heads.  At the model's shape the fastest-decaying heads
-# (A down to -24) have the smallest |y|, so each head is also held on its
-# own: max |d| / max |plain| within the head < SSD_MODEL_TOL.  Kernel and
-# plain both round fp32 sums to bf16, so a differing element is off by
-# one bf16 ulp, <= 2^-7 of the head's largest |y|.
+# smoke model's heads, then a bf16 head dim outside the wgmma kernel's
+# set (the CUDA-core kernel in bf16).  At the model's shape the
+# fastest-decaying heads (A down to -24) have the smallest |y|, so each
+# head is also held on its own: max |d| / max |plain| within the head <
+# SSD_MODEL_TOL, on the script's seed and five more.  Kernel and plain
+# both round fp32 sums to bf16, so a differing element is off by one bf16
+# ulp, <= 2^-7 of the head's largest |y|: that measure cannot tell an
+# exact kernel from one that rounds its fp32 operands to bf16.  So every
+# bf16 case, and the model's shape on all six seeds, is also held to the
+# plain version's fp32 result: by how much the kernel's bf16 output is
+# off it beyond bf16's own rounding (``ref.rounding_excess``), under
+# SSD_EXACT_TOL of the head's largest |y|.  All math in fp32 leaves only
+# the fp32 rounding of sums taken in another order.
 SSD_MODEL = (4, 8192, 24, 64, 128, "bfloat16", 5e-2)
 SSD_MODEL_TOL = 1e-2
+SSD_EXACT_TOL = 1e-5
 SSD_CASES = [SSD_MODEL, (2, 256, 3, 32, 16, "float32", 1e-4),
              (1, 384, 2, 64, 128, "float32", 1e-4),
              (1, 256, 2, 32, 64, "float32", 1e-4),
              (1, 256, 2, 32, 16, "bfloat16", 5e-2),
              (2, 200, 3, 64, 128, "float32", 1e-4),
-             (2, 80, 8, 16, 16, "float32", 1e-4)]
+             (2, 80, 8, 16, 16, "float32", 1e-4),
+             (2, 200, 3, 48, 128, "bfloat16", 5e-2)]
+# Segment counts at which the wgmma kernel is timed at the model's shape,
+# beside the wrapper's rule (ssd_scan.plan).
+SSD_SEGMENT_SWEEP = range(1, 17)
 
 
 def flash_work(b, sq, sk, hq, hkv, d, causal, window, dtype):
@@ -690,6 +707,131 @@ def bound(nbytes: float, ops: float, ops_per_s: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def ssd_checks(device, gen, rows) -> float:
+    """The SSD scan's part of :func:`phase_model_kernels`: every SSD_CASES
+    case against the plain version, the model's shape timed (with the
+    wgmma kernel at SSD_SEGMENT_SWEEP's segment counts) and held on five
+    more seeds, every bf16 result held to SSD_EXACT_TOL once all are
+    printed.  Adds the ``ssd_scan`` row to ``rows``; returns the largest
+    |kernel - plain|."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import (CHUNK, rounding_excess,
+                                                  ssd_scan_plain)
+    from repro_torch.kernels.ssd_scan.ssd_scan import launch as ssd_launch
+    from repro_torch.kernels.ssd_scan.ssd_scan import plan as ssd_plan
+    err_ssd = 0.0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def ssd_run(args):
+        """The kernel's output, the plain version's in fp32 (with the
+        kernel's segments; its bf16 output is this rounded) and the
+        (kernel, segments) that the wrapper's rule gave the call."""
+        s = args[0].shape[1]
+        pad = (-s) % CHUNK
+        seen = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
+                for t in args[:4]]
+        x, _, B, C = seen
+        how = ssd_plan(x.dtype, x.shape[3], B.shape[2],
+                       (*x.stride()[:3], *B.stride()[:2], *C.stride()[:2]),
+                       (x.data_ptr(), B.data_ptr(), C.data_ptr()),
+                       batch=x.shape[0], heads=x.shape[2], seq=s + pad,
+                       sms=sms)
+        got = ssd_scan(*args)
+        want32 = ssd_scan_plain(*(t.float() for t in seen), args[4],
+                                segments=how[1])[:, :s]
+        return got, want32, how
+
+    def worst_head(got, want):
+        """max |d| / max |plain| within each head, the worst head's."""
+        d, w = (got.float() - want.float()).abs(), want.float().abs()
+        return (d.amax((0, 1, 3)) / w.amax((0, 1, 3))).max().item(), d, w
+
+    exact = []      # (what, rounding excess): held once all are printed
+    for case in SSD_CASES:
+        b, s, h, hd, n, dtype, tol = case
+        args = ssd_inputs(case, gen, device)
+        got, want32, how = ssd_run(args)
+        want = want32.to(got.dtype)
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / float(want.float().abs().max())
+        check(math.isfinite(rel) and rel < tol and got.shape == want.shape,
+              f"ssd_scan != plain at {case}: relative {rel}")
+        err_ssd = max(err_ssd, err)
+        line = (f"[kernels] ssd_scan b={b} s={s} h={h} hd={hd} n={n} "
+                f"{dtype} on the {how[0]} kernel in {how[1]} segment(s): "
+                f"max |kernel - plain| {err:.3g}, / max |plain| {rel:.3g} "
+                f"< {tol}")
+        if dtype == "bfloat16":
+            excess = rounding_excess(got, want32).max().item()
+            exact.append((f"{case[:5]} on the {how[0]} kernel", excess))
+            line += f"; rounding excess {excess:.3g}"
+        if case is SSD_MODEL:
+            head, d, w = worst_head(got, want)
+            seeds = [(SEED, head, excess)]
+            line += (f"; worst head {head:.3g}; mean |plain| "
+                     f"{w.mean().item():.4g}, mean |d| / mean |plain| "
+                     f"{(d.mean() / w.mean()).item():.3g}")
+            del d, w
+            bnd, by, nbytes, ops = ssd_bound(case)
+            old_bnd, old_by, _, _ = ssd_bound(case, ALU_OPS_PER_S)
+            _, k16, k32 = ssd_work(*case[:6], CHUNK)
+            k_ms = (k16 / BF16_OPS_PER_S + k32 / SPLIT3_OPS_PER_S) * 1e3
+            segs = how[1]
+            rows["ssd_scan"] = {
+                "ms": ms_per_call(lambda: ssd_scan(*args), 20, device),
+                "plain_ms": ms_per_call(
+                    lambda: ssd_scan_plain(*args, segments=segs), 3, device),
+                "library_ms": None, "bound_ms": bnd, "bound_by": by,
+                "bytes": nbytes, "ops": ops}
+            ms = rows["ssd_scan"]["ms"]
+            line += (f"; kernel {ms:.4g} ms, plain "
+                     f"{rows['ssd_scan']['plain_ms']:.4g} ms, bound "
+                     f"{bnd:.4g} ms by {by} (fp32-operand products at a "
+                     f"third of the bf16 tensor rate; {ms / bnd:.3g}x) and "
+                     f"PR 14's count {old_bnd:.4g} ms by {old_by} (at the "
+                     f"CUDA-core rate; {ms / old_bnd:.3g}x); "
+                     f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP at chunk "
+                     f"1; the operations at the kernel's chunk {CHUNK} take "
+                     f"{k_ms:.4g} ms")
+            # The wgmma kernel at other segment counts than the rule's.
+            sweep = {k: ms_per_call(lambda k=k: ssd_launch(
+                *args, "wgmma", k), 20, device) for k in SSD_SEGMENT_SWEEP}
+            line += (f"; by segment count (the rule's {segs}): " + ", ".join(
+                f"{k}: {t:.4g} ms" for k, t in sweep.items()))
+        print(line, flush=True)
+        del args, got, want, want32
+    # The model's shape on five more seeds.
+    for seed in range(SEED + 1, SEED + 6):
+        args = ssd_inputs(SSD_MODEL, torch.Generator(device).manual_seed(seed),
+                          device)
+        got, want32, _ = ssd_run(args)
+        want = want32.to(got.dtype)
+        seeds.append((seed, worst_head(got, want)[0],
+                      rounding_excess(got, want32).max().item()))
+        exact.append((f"the model's shape on seed {seed}", seeds[-1][2]))
+        err_ssd = max(err_ssd, float((got.float() - want.float()).abs().max()))
+        del args, got, want, want32
+    print(f"[kernels] ssd_scan at the model's shape on seeds {SEED}-"
+          f"{SEED + 5}: worst head {[round(h, 6) for _, h, _ in seeds]}, "
+          f"each held < {SSD_MODEL_TOL}; rounding excess "
+          f"{[float(f'{e:.3g}') for _, _, e in seeds]}", flush=True)
+    print(f"[kernels] ssd_scan bf16 rounding excess, each held < "
+          f"{SSD_EXACT_TOL}: " + ", ".join(f"{what} {e:.3g}"
+                                          for what, e in exact), flush=True)
+    for seed, head, _ in seeds:
+        check(math.isfinite(head) and head < SSD_MODEL_TOL,
+              f"ssd_scan != plain at the model's shape on seed {seed}: worst "
+              f"head {head} >= {SSD_MODEL_TOL}")
+    for what, e in exact:
+        check(math.isfinite(e) and e < SSD_EXACT_TOL,
+              f"ssd_scan's bf16 output at {what} is off its plain version's "
+              f"fp32 result by more than bf16's rounding: excess {e} >= "
+              f"{SSD_EXACT_TOL}")
+    return err_ssd
+
+
 def phase_model_kernels(device):
     """Flash attention, the RG-LRU scan and the SSD scan against their
     plain versions on the card, at the models' shapes and at odd ones;
@@ -704,9 +846,6 @@ def phase_model_kernels(device):
         BLOCK_K, BLOCK_Q, flash_attention_plain)
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_plain
-    from repro_torch.kernels.ssd_scan import ssd_scan
-    from repro_torch.kernels.ssd_scan.ref import CHUNK, ssd_scan_plain
-    from repro_torch.kernels.ssd_scan.ssd_scan import plan as ssd_plan
     gen = torch.Generator(device).manual_seed(SEED)
     rows = {}
     err_fa = 0.0
@@ -829,93 +968,7 @@ def phase_model_kernels(device):
                      f"{bnd:.4g} ms by {by}")
         print(line, flush=True)
         del a, bb, got, want
-    err_ssd = 0.0
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-
-    def ssd_run(args):
-        """The kernel's output, the plain version's (with the kernel's
-        segments) and the (kernel, segments) that the wrapper's rule gave
-        the call."""
-        s = args[0].shape[1]
-        pad = (-s) % CHUNK
-        seen = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
-                for t in args[:4]]
-        x, _, B, C = seen
-        how = ssd_plan(x.dtype, x.shape[3], B.shape[2],
-                       (*x.stride()[:3], *B.stride()[:2], *C.stride()[:2]),
-                       (x.data_ptr(), B.data_ptr(), C.data_ptr()),
-                       batch=x.shape[0], heads=x.shape[2], seq=s + pad,
-                       sms=sms)
-        got = ssd_scan(*args)
-        want = ssd_scan_plain(*seen, args[4], segments=how[1])[:, :s]
-        return got, want, how
-
-    def worst_head(got, want):
-        """max |d| / max |plain| within each head, the worst head's."""
-        d, w = (got.float() - want.float()).abs(), want.float().abs()
-        return (d.amax((0, 1, 3)) / w.amax((0, 1, 3))).max().item(), d, w
-
-    for case in SSD_CASES:
-        b, s, h, hd, n, dtype, tol = case
-        args = ssd_inputs(case, gen, device)
-        got, want, how = ssd_run(args)
-        err = float((got.float() - want.float()).abs().max())
-        rel = err / float(want.float().abs().max())
-        check(math.isfinite(rel) and rel < tol and got.shape == want.shape,
-              f"ssd_scan != plain at {case}: relative {rel}")
-        err_ssd = max(err_ssd, err)
-        line = (f"[kernels] ssd_scan b={b} s={s} h={h} hd={hd} n={n} "
-                f"{dtype} on the {how[0]} kernel in {how[1]} segment(s): "
-                f"max |kernel - plain| {err:.3g}, / max |plain| {rel:.3g} "
-                f"< {tol}")
-        if case is SSD_MODEL:
-            head, d, w = worst_head(got, want)
-            check(math.isfinite(head) and head < SSD_MODEL_TOL,
-                  f"ssd_scan != plain at the model's shape: worst head "
-                  f"{head} >= {SSD_MODEL_TOL}")
-            line += (f"; worst head {head:.3g} < {SSD_MODEL_TOL}; mean "
-                     f"|plain| {w.mean().item():.4g}, mean |d| / mean "
-                     f"|plain| {(d.mean() / w.mean()).item():.3g}")
-            del d, w
-            bnd, by, nbytes, ops = ssd_bound(case)
-            old_bnd, old_by, _, _ = ssd_bound(case, ALU_OPS_PER_S)
-            _, k16, k32 = ssd_work(*case[:6], CHUNK)
-            k_ms = (k16 / BF16_OPS_PER_S + k32 / SPLIT3_OPS_PER_S) * 1e3
-            segs = how[1]
-            rows["ssd_scan"] = {
-                "ms": ms_per_call(lambda: ssd_scan(*args), 20, device),
-                "plain_ms": ms_per_call(
-                    lambda: ssd_scan_plain(*args, segments=segs), 3, device),
-                "library_ms": None, "bound_ms": bnd, "bound_by": by,
-                "bytes": nbytes, "ops": ops}
-            ms = rows["ssd_scan"]["ms"]
-            line += (f"; kernel {ms:.4g} ms, plain "
-                     f"{rows['ssd_scan']['plain_ms']:.4g} ms, bound "
-                     f"{bnd:.4g} ms by {by} (fp32-operand products at a "
-                     f"third of the bf16 tensor rate; {ms / bnd:.3g}x) and "
-                     f"PR 14's count {old_bnd:.4g} ms by {old_by} (at the "
-                     f"CUDA-core rate; {ms / old_bnd:.3g}x); "
-                     f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP at chunk "
-                     f"1; the operations at the kernel's chunk {CHUNK} take "
-                     f"{k_ms:.4g} ms")
-        print(line, flush=True)
-        del args, got, want
-    # The model's shape on five more seeds, each held under SSD_MODEL_TOL.
-    heads = []
-    for seed in range(SEED + 1, SEED + 6):
-        args = ssd_inputs(SSD_MODEL, torch.Generator(device).manual_seed(seed),
-                          device)
-        got, want, _ = ssd_run(args)
-        head = worst_head(got, want)[0]
-        check(math.isfinite(head) and head < SSD_MODEL_TOL,
-              f"ssd_scan != plain at the model's shape on seed {seed}: worst "
-              f"head {head} >= {SSD_MODEL_TOL}")
-        heads.append(round(head, 6))
-        err_ssd = max(err_ssd, float((got.float() - want.float()).abs().max()))
-        del args, got, want
-    print(f"[kernels] ssd_scan at the model's shape on seeds {SEED + 1}-"
-          f"{SEED + 5} (held): worst head {heads}, each < {SSD_MODEL_TOL}",
-          flush=True)
+    err_ssd = ssd_checks(device, gen, rows)
     torch.cuda.empty_cache()
     return rows, {"flash_attention": err_fa, "rglru_scan": err_rg,
                   "ssd_scan": err_ssd}

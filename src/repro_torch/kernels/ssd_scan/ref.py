@@ -21,7 +21,8 @@ the segments' carried-in states are chained from those in order.  That
 changes only the order of the sums.
 
 :func:`split_bf16x3` is the kernel's exact split of an fp32 operand into
-three bf16 pieces, one tensor-core product each.
+three bf16 pieces, one tensor-core product each, and
+:func:`rounding_excess` the measure that holds a bf16 output to it.
 """
 from __future__ import annotations
 
@@ -46,6 +47,20 @@ def split_bf16x3(v: torch.Tensor):
     r = v - hi.float()
     mid = r.bfloat16()
     return hi, mid, (r - mid.float()).bfloat16()
+
+
+def rounding_excess(got: torch.Tensor, want32: torch.Tensor) -> torch.Tensor:
+    """Per head (axis 2 of (b, S, H, hd)): the largest amount by which
+    |got - want32| exceeds bf16's rounding of the fp32 result want32
+    (round to nearest: 2^-8 |want32|), over the head's largest |want32|.
+    It is 0 when got is want32 rounded to bf16.  A bf16 output whose fp32
+    sums differ from want32's only in their order exceeds it by those
+    sums' fp32 rounding; one whose products round an fp32 operand to
+    fewer bits (one bf16 piece, TF32) exceeds it by that rounding."""
+    w = want32.double()
+    over = (got.double() - w).abs() - w.abs() * 2.0 ** -8
+    return over.clamp_min(0).amax((0, 1, 3)) / w.abs().amax(
+        (0, 1, 3)).clamp_min(torch.finfo(torch.float64).tiny)
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,

@@ -15,12 +15,13 @@ shape and alignment before the launch:
 - bf16 with hd in ``TC_HEAD_DIMS``, n in ``TC_STATES``, every base 16-byte
   aligned and every stride (but the unit last one) a multiple of 8
   elements (TMA reads 16-byte aligned rows): the wgmma kernel, with the
-  sequence cut into segments of whole chunks.  From the least segment
-  count whose grid holds ``CTAS_PER_SM`` CTAs per SM (or one segment per
-  chunk, if fewer) up to twice that (each extra segment adds end-state
-  work and a longer chain), it takes the count whose output pass needs
-  the fewest chunk steps, waves (one CTA per SM at a time) x chunks per
-  segment, and the fewest segments among those;
+  sequence cut into segments of whole chunks.  One CTA fits an SM at a
+  time, so ``MIN_WAVES`` is the CTAs each SM runs across the waves of the
+  output pass.  From the least segment count whose grid makes
+  ``MIN_WAVES`` waves (or one segment per chunk, if fewer) up to twice
+  that (each extra segment adds end-state work and a longer chain), the
+  rule takes the count whose output pass needs the fewest chunk steps,
+  waves x chunks per segment, and the fewest segments among those;
 - any other float32 or bf16 call with hd and n multiples of 4: the
   CUDA-core kernel, in one segment;
 - anything else is refused.
@@ -39,33 +40,28 @@ DTYPES = (torch.float32, torch.bfloat16)
 TC_HEAD_DIMS = (16, 32, 64)      # csrc/ssd_scan.cu launch_tc instances
 TC_STATES = (16, 32, 64, 128)
 HEADS_PER_CTA = 2                # one consumer warpgroup per head
-CTAS_PER_SM = 2
+MIN_WAVES = 2                    # CTAs per SM across the waves
 KERNEL_IDS = {"cuda_core": 0, "wgmma": 1}   # the C entry point's `kernel`
 
 
 def plan(dtype: torch.dtype, hd: int, n: int, strides, addresses, *,
-         batch: int, heads: int, seq: int, sms: int,
-         segments: int | None = None) -> tuple[str, int]:
+         batch: int, heads: int, seq: int, sms: int) -> tuple[str, int]:
     """(kernel, segments) for a CUDA call: the rule in the module's
     docstring.  ``strides`` are the element strides of x, B and C
     (their last one is 1), ``addresses`` their data pointers, ``seq`` a
-    multiple of CHUNK and ``sms`` the card's SM count; ``segments``
-    overrides the wgmma kernel's segment count (cut to whole chunks).
-    Raises ValueError on what no kernel takes."""
+    multiple of CHUNK and ``sms`` the card's SM count.  Raises
+    ValueError on what no kernel takes."""
     if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS and n in TC_STATES \
             and all(a % 16 == 0 for a in addresses) \
             and all(s % 8 == 0 for s in strides):
         chunks = max(1, seq // CHUNK)
         ctas = -(-heads // HEADS_PER_CTA) * batch      # per segment
-        if segments is None:
-            least = min(chunks, -(-CTAS_PER_SM * sms // ctas))
+        least = min(chunks, -(-MIN_WAVES * sms // ctas))
 
-            def steps(k):     # waves x chunks per segment, then k
-                return -(-ctas * k // sms) * segment_chunks(chunks, k), k
-            segments = min(range(least, min(chunks, 2 * least) + 1),
-                           key=steps)
-        per = segment_chunks(chunks, min(segments, chunks))
-        return "wgmma", -(-chunks // per)
+        def steps(k):         # waves x chunks per segment, then k
+            return -(-ctas * k // sms) * segment_chunks(chunks, k), k
+        segments = min(range(least, min(chunks, 2 * least) + 1), key=steps)
+        return "wgmma", -(-chunks // segment_chunks(chunks, segments))
     if dtype in DTYPES and hd % 4 == 0 and n % 4 == 0:
         return "cuda_core", 1
     raise ValueError(f"no SSD kernel takes {dtype} with head_dim {hd} and "
@@ -74,15 +70,12 @@ def plan(dtype: torch.dtype, hd: int, n: int, strides, addresses, *,
 
 
 def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
-                 C: torch.Tensor, A: torch.Tensor, *,
-                 segments: int | None = None) -> torch.Tensor:
+                 C: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """x (b, S, H, hd) and B/C (b, S, n) float32 or bfloat16 of one type,
     dt (b, S, H) and A (H,) float32, S % CHUNK == 0.  Returns y
-    (b, S, H, hd) in x's type, contiguous.  ``segments`` overrides
-    :func:`plan`'s segment count of the wgmma kernel (tests).  The
-    CUDA-core kernel also refuses (launch error) an (hd, n) whose fp32
-    tiles exceed the 227 KB of shared memory a block can hold
-    (``smem_floats`` in the source)."""
+    (b, S, H, hd) in x's type, contiguous.  The CUDA-core kernel also
+    refuses (launch error) an (hd, n) whose fp32 tiles exceed the 227 KB
+    of shared memory a block can hold (``smem_floats`` in the source)."""
     if x.dtype not in DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"the SSD scan takes float32 or bfloat16 x/B/C of one "
                         f"type, got {x.dtype}, {B.dtype}, {C.dtype}")
@@ -111,15 +104,28 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     kernel, segs = plan(x.dtype, hd, n,
                         (*x.stride()[:3], *B.stride()[:2], *C.stride()[:2]),
                         (x.data_ptr(), B.data_ptr(), C.data_ptr()), batch=b,
-                        heads=h, seq=s, sms=sms, segments=segments)
+                        heads=h, seq=s, sms=sms)
+    return launch(x, dt, B, C, A, kernel, segs)
+
+
+def launch(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+           C: torch.Tensor, A: torch.Tensor, kernel: str,
+           segments: int) -> torch.Tensor:
+    """The wrapper's second half: launch ``kernel`` (a key of
+    ``KERNEL_IDS``) with ``segments`` segments on CUDA inputs that
+    :func:`ssd_scan_fwd` has checked and :func:`plan` accepts.
+    ``chip_smoke.py`` also calls it, to time the wgmma kernel at segment
+    counts other than the rule's."""
+    b, s, h, hd = x.shape
+    n = B.shape[-1]
     y = torch.empty((b, s, h, hd), dtype=x.dtype, device=x.device)
     if y.numel():
-        ends = torch.empty((b * h * segs * 64 * n if segs > 1 else 0,),
+        ends = torch.empty((b * h * segments * 64 * n if segments > 1 else 0,),
                            dtype=torch.float32, device=x.device)
-        logs = torch.empty((b * h * segs if segs > 1 else 0,),
+        logs = torch.empty((b * h * segments if segments > 1 else 0,),
                            dtype=torch.float32, device=x.device)
         _lib.launch("ssd_scan", x.device, x, dt, B, C, A, y, ends, logs, b, s,
                     h, hd, n, *x.stride()[:3], *dt.stride(), *B.stride()[:2],
                     *C.stride()[:2], int(x.dtype == torch.bfloat16),
-                    KERNEL_IDS[kernel], segment_chunks(s // CHUNK, segs))
+                    KERNEL_IDS[kernel], segment_chunks(s // CHUNK, segments))
     return y

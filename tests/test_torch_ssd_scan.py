@@ -7,7 +7,9 @@ come from a numpy seed.
 
 Then the kernels' decomposition, held on the CPU: the plain version's
 segment carry against ``ssd_ref``, the exact bf16 split of fp32
-operands, the dispatch rule (``plan``) and the build's header hash.
+operands, the measure that holds a bf16 output to it
+(``rounding_excess``), the dispatch rule (``plan``) and the build's
+header hash.
 
 The ``cuda`` tests hold both CUDA kernels against the plain version on
 the card; they skip where ``torch.cuda.is_available()`` is false.  The
@@ -24,8 +26,9 @@ import re
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_fwd
-from repro_torch.kernels.ssd_scan.ref import (CHUNK, segment_chunks,
-                                              split_bf16x3, ssd_scan_plain)
+from repro_torch.kernels.ssd_scan.ref import (CHUNK, rounding_excess,
+                                              segment_chunks, split_bf16x3,
+                                              ssd_scan_plain)
 from repro_torch.kernels.ssd_scan.ssd_scan import plan
 
 # b, s, h, hd, n, chunk (of the Pallas kernel), dtype, tol
@@ -230,35 +233,34 @@ MODEL_STRIDES = (8192 * 1792, 1792, 64, 8192 * 1792, 1792, 8192 * 1792, 1792)
 
 @pytest.mark.parametrize("case", [
     # dtype, hd, n, strides (x 3, B 2, C 2), address offset in bytes,
-    # (batch, heads, seq), segments asked, expected (kernel, segments)
-    ("bfloat16", 64, 128, MODEL_STRIDES, 0, (4, 24, 8192), None,
+    # (batch, heads, seq), expected (kernel, segments)
+    ("bfloat16", 64, 128, MODEL_STRIDES, 0, (4, 24, 8192),
      ("wgmma", 8)),                       # mamba2-130m: 384 CTAs, 3 waves
     ("bfloat16", 16, 16, (80 * 128, 128, 16, 80 * 16, 16, 80 * 16, 16), 0,
-     (2, 8, 128), None, ("wgmma", 2)),    # mamba2-smoke: one per chunk
+     (2, 8, 128), ("wgmma", 2)),          # mamba2-smoke: one per chunk
+    ("bfloat16", 64, 128, MODEL_STRIDES, 0, (1, 2, 64),
+     ("wgmma", 1)),                       # one chunk
     ("bfloat16", 32, 16, (256 * 64, 64, 32, 256 * 16, 16, 256 * 16, 16), 0,
-     (1, 2, 256), 3, ("wgmma", 2)),       # 4 chunks: segments of 2
-    ("bfloat16", 64, 128, MODEL_STRIDES, 0, (1, 2, 256), 100,
-     ("wgmma", 4)),                       # at most one segment per chunk
-    ("float32", 64, 128, MODEL_STRIDES, 0, (4, 24, 8192), None,
+     (1, 2, 256), ("wgmma", 4)),          # 4 chunks on one CTA
+    ("float32", 64, 128, MODEL_STRIDES, 0, (4, 24, 8192),
      ("cuda_core", 1)),                   # fp32: the CUDA-core kernel
-    ("bfloat16", 48, 128, MODEL_STRIDES, 0, (4, 24, 8192), None,
+    ("bfloat16", 48, 128, MODEL_STRIDES, 0, (4, 24, 8192),
      ("cuda_core", 1)),                   # hd outside the wgmma set
-    ("bfloat16", 64, 96, MODEL_STRIDES, 0, (4, 24, 8192), None,
+    ("bfloat16", 64, 96, MODEL_STRIDES, 0, (4, 24, 8192),
      ("cuda_core", 1)),                   # n outside the wgmma set
-    ("bfloat16", 64, 128, MODEL_STRIDES, 2, (4, 24, 8192), None,
+    ("bfloat16", 64, 128, MODEL_STRIDES, 2, (4, 24, 8192),
      ("cuda_core", 1)),                   # base not 16-byte aligned
     ("bfloat16", 64, 128, (8192 * 1790, 1790, 64, 8192 * 1790, 1790,
-                           8192 * 1790, 1790), 0, (4, 24, 8192), None,
+                           8192 * 1790, 1790), 0, (4, 24, 8192),
      ("cuda_core", 1)),                   # row stride 3580 B: no TMA
 ])
 def test_dispatch_rule(case):
-    dtype, hd, n, strides, off, (b, h, s), segments, want = case
+    dtype, hd, n, strides, off, (b, h, s), want = case
     got = plan(getattr(torch, dtype), hd, n, strides,
-               (4096 + off, 8192, 8448), batch=b, heads=h, seq=s, sms=132,
-               segments=segments)
+               (4096 + off, 8192, 8448), batch=b, heads=h, seq=s, sms=132)
     assert got == want
     kernel, segs = got
-    if kernel == "wgmma" and segments is None:
+    if kernel == "wgmma":
         assert -(-h // 2) * b * segs >= 2 * 132 or segs == s // CHUNK
     assert segment_chunks(s // CHUNK, segs) * segs >= s // CHUNK
 
@@ -270,6 +272,77 @@ def test_dispatch_rule_refuses(case):
     with pytest.raises(ValueError, match="no SSD kernel takes"):
         plan(getattr(torch, dtype), hd, n, (8,) * 7, (0, 0, 0), batch=1,
              heads=2, seq=128, sms=132)
+
+
+# The largest excess over bf16's rounding (ref.rounding_excess) that the
+# bf16 kernels may show against the plain version's fp32 result, of the
+# head's largest |y|: chip_smoke.SSD_EXACT_TOL.
+EXACT_TOL = 1e-5
+
+
+def _rounded(t, pieces):
+    """t through ``pieces`` of its exact bf16 split, or TF32 (10 of its
+    23 fraction bits, rounded to nearest)."""
+    if pieces == "tf32":
+        i = t.view(torch.int32)
+        return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+    return sum(q.float() for q in split_bf16x3(t)[:pieces])
+
+
+def _plain_rounding_operands(x, dt, B, C, A, pieces, chunk=CHUNK):
+    """ssd_scan_plain's sums in one segment, fp32 out, with each fp32
+    operand of a product (M, x * w and the carried state) rounded as
+    :func:`_rounded` does: a kernel that keeps fewer than three pieces."""
+    b, s, h, hd = x.shape
+    n = B.shape[-1]
+    nc = s // chunk
+    xf = x.float().reshape(b, nc, chunk, h, hd).transpose(2, 3)
+    dtf = dt.reshape(b, nc, chunk, h).transpose(2, 3)
+    Bf = B.float().reshape(b, nc, chunk, n)
+    Cf = C.float().reshape(b, nc, chunk, n)
+    cum = torch.cumsum(dtf * A[:, None], dim=-1)
+    tril = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    seg = (cum[..., :, None] - cum[..., None, :]).masked_fill(
+        ~tril, float("-inf"))
+    M = (Cf @ Bf.transpose(-1, -2))[:, :, None] * torch.exp(seg) \
+        * dtf[..., None, :]
+    y = _rounded(M, pieces) @ xf
+    xw = xf * (dtf * torch.exp(cum[..., -1:] - cum))[..., None]
+    new = _rounded(xw, pieces).transpose(-1, -2) @ Bf[:, :, None]
+    decay = torch.exp(cum[..., -1])[..., None, None]
+    state = torch.zeros((b, h, hd, n))
+    for c in range(nc):
+        y[:, c] += torch.exp(cum[:, c])[..., None] * (
+            Cf[:, c, None] @ _rounded(state, pieces).transpose(-1, -2))
+        state = state * decay[:, c] + new[:, c]
+    return y.transpose(2, 3).reshape(b, s, h, hd)
+
+
+@pytest.mark.parametrize("pieces", [3, "chunk", 2, "tf32", 1])
+def test_rounding_excess_tells_exact_from_rounded_operands(pieces):
+    """The plain version's fp32 result rounded to bf16 exceeds bf16's
+    rounding by nothing; sums taken in another order (the chunk, or three
+    pieces of every operand) by their fp32 rounding only, well under
+    EXACT_TOL; TF32 and one bf16 piece by far more (measured here:
+    1.6e-4 and 1.5e-3).  Two pieces (16 bits, 7.9e-7) fall under it
+    too."""
+    b, s, h, hd, n = 1, 512, 2, 32, 64
+    x, dt, B, C, A = (torch.tensor(a) for a in _inputs(b, s, h, hd, n, 12))
+    x, B, C = x.bfloat16(), B.bfloat16(), C.bfloat16()
+    want32 = ssd_scan_plain(x.float(), dt, B.float(), C.float(), A)
+    assert float(rounding_excess(want32.bfloat16(), want32).max()) == 0
+    if pieces == "chunk":
+        got = ssd_scan_plain(x.float(), dt, B.float(), C.float(), A,
+                             chunk=16)
+    else:
+        got = _plain_rounding_operands(x, dt, B, C, A, pieces)
+    excess = float(rounding_excess(got.bfloat16(), want32).max())
+    if pieces in (3, "chunk"):
+        assert excess < EXACT_TOL / 100, excess
+    elif pieces == 2:
+        assert excess < EXACT_TOL, excess
+    else:
+        assert excess > EXACT_TOL * 10, excess
 
 
 @pytest.mark.parametrize("name", sorted(_lib.KERNELS))
@@ -290,6 +363,7 @@ CUDA_CASES = [c[:5] + c[6:] for c in SWEEP] + [
     (2, 200, 3, 64, 128, "float32", 1e-4),      # S not a chunk multiple
     (2, 80, 8, 16, 16, "float32", 1e-4),        # mamba2-smoke's heads
     (1, 1024, 24, 64, 128, "bfloat16", 5e-2),   # mamba2-130m's heads
+    (2, 200, 3, 48, 128, "bfloat16", 5e-2),     # bf16 on the CUDA cores
 ]
 
 
@@ -313,54 +387,87 @@ def test_cuda_ssd_scan_matches_plain(cuda_device, case):
     pad = (-s) % CHUNK
     padded = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
               for t in (x, dt, B, C)]
-    want = ssd_scan_plain(*padded, A)[:, :s]
+    want32 = ssd_scan_plain(*(t.float() for t in padded), A)[:, :s]
+    want = want32.to(td)
     torch.cuda.synchronize()
     assert _lib.launch_counts["ssd_scan"] == before + 1
     rel = ((got.float() - want.float()).abs().max()
            / want.float().abs().max()).item()
     assert rel < tol, rel
+    if td == torch.bfloat16:
+        assert rounding_excess(got, want32).max().item() < EXACT_TOL
 
 
-# b, s, h, hd, n, segments (None: plan's), x/B/C as column views of one
-# tensor (the model's layout)
+# b, s, h, hd, n, x/B/C as column views of one tensor (the model's
+# layout), the segments plan gives on 132 SMs (test_tc_cases_segments)
 TC_CASES = [
-    (2, 320, 3, 16, 16, 1, False), (2, 320, 3, 16, 16, 3, True),
-    (1, 256, 2, 32, 16, 1, True), (1, 256, 2, 32, 16, 2, False),
-    (1, 1024, 24, 64, 128, 1, True), (1, 1024, 24, 64, 128, None, True),
-    (2, 200, 5, 64, 128, 2, True),              # odd H, S not a chunk multiple
+    (2, 320, 3, 16, 16, False, 5),              # one segment per chunk
+    (12, 320, 21, 16, 16, True, 2),             # 3 + 2 chunks, odd H
+    (8, 256, 66, 16, 16, True, 1),
+    (1, 256, 2, 32, 16, True, 4),
+    (4, 128, 132, 32, 16, False, 1),
+    (1, 1024, 24, 64, 128, True, 16),
+    (4, 1024, 24, 64, 128, True, 8),            # 2 chunks a segment
+    (11, 256, 48, 64, 128, True, 1),
+    (2, 200, 5, 64, 128, True, 4),              # odd H, S not a chunk multiple
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", TC_CASES)
-def test_cuda_wgmma_ssd_scan_matches_plain(cuda_device, case):
-    """The wgmma kernel (bf16), in one segment and in several, against
-    the plain version with the same segments, at the bf16 sweep's 5e-2
-    and, per head, at chip_smoke's 1e-2."""
-    b, s, h, hd, n, segments, views = case
-    x, dt, B, C, A = (torch.tensor(a, device=cuda_device)
-                      for a in _inputs(b, s, h, hd, n, 11))
+def _tc_inputs(case, device, seed):
+    """bf16 x, B and C (as column views of one tensor, or not), dt and A,
+    padded to whole chunks as the wrapper pads them (before the views
+    are cut, so that they stay views)."""
+    b, s, h, hd, n, views, _ = case
+    x, dt, B, C, A = (torch.tensor(a, device=device)
+                      for a in _inputs(b, s, h, hd, n, seed))
+    pad = (-s) % CHUNK
+    x, dt, B, C = (torch.nn.functional.pad(
+        t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, B, C))
     if views:
         xbc = torch.cat([x.flatten(2), B, C], -1).bfloat16()
         x = xbc[..., :h * hd].unflatten(-1, (h, hd))
         B, C = xbc[..., h * hd:h * hd + n], xbc[..., h * hd + n:]
     else:
         x, B, C = x.bfloat16(), B.bfloat16(), C.bfloat16()
-    pad = (-s) % CHUNK
-    padded = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
-              for t in (x, dt, B, C)]
-    kernel, segs = plan(torch.bfloat16, hd, n,
-                        (*padded[0].stride()[:3], *padded[2].stride()[:2],
-                         *padded[3].stride()[:2]),
-                        (t.data_ptr() for t in (padded[0], *padded[2:])),
-                        batch=b, heads=h, seq=s + pad, sms=132,
-                        segments=segments)
+    return x, dt, B, C, A
+
+
+def _tc_plan(x, B, C, sms):
+    return plan(torch.bfloat16, x.shape[3], B.shape[2],
+                (*x.stride()[:3], *B.stride()[:2], *C.stride()[:2]),
+                (t.data_ptr() for t in (x, B, C)), batch=x.shape[0],
+                heads=x.shape[2], seq=x.shape[1], sms=sms)
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_tc_cases_segments(case):
+    """The card cases below reach the wgmma kernel in one segment and in
+    several, by plan's own rule (132 SMs, as on the H100)."""
+    x, _, B, C, _ = _tc_inputs(case, "cpu", 11)
+    assert _tc_plan(x, B, C, 132) == ("wgmma", case[-1])
+    assert B.is_contiguous() != case[5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES)
+def test_cuda_wgmma_ssd_scan_matches_plain(cuda_device, case):
+    """The wgmma kernel (bf16), in one segment and in several, against
+    the plain version with the same segments, at the bf16 sweep's 5e-2,
+    per head at chip_smoke's 1e-2, and beyond bf16's rounding of the
+    plain version's fp32 result at EXACT_TOL."""
+    s = case[1]
+    x, dt, B, C, A = _tc_inputs(case, cuda_device, 11)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    kernel, segs = _tc_plan(x, B, C, sms)
     assert kernel == "wgmma"
     before = _lib.launch_counts["ssd_scan"]
-    got = ssd_scan_fwd(*padded, A, segments=segments)[:, :s]
-    want = ssd_scan_plain(*padded, A, segments=segs)[:, :s]
+    got = ssd_scan_fwd(x, dt, B, C, A)[:, :s]
+    want32 = ssd_scan_plain(x.float(), dt, B.float(), C.float(), A,
+                            segments=segs)[:, :s]
     torch.cuda.synchronize()
     assert _lib.launch_counts["ssd_scan"] == before + 1
-    d, w = (got.float() - want.float()).abs(), want.float().abs()
+    d = (got.float() - want32.bfloat16().float()).abs()
+    w = want32.bfloat16().float().abs()
     assert (d.max() / w.max()).item() < 5e-2
     assert (d.amax((0, 1, 3)) / w.amax((0, 1, 3))).max().item() < 1e-2
+    assert rounding_excess(got, want32).max().item() < EXACT_TOL
