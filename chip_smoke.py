@@ -21,11 +21,16 @@ Phases (each prints its lines; any failure exits non-zero):
    x (4, 8192, 24, 64) bf16 with B/C (4, 8192, 128) as column views of
    one conv output) and at odd ones (S not a block or chunk multiple,
    GQA, no window, fp32; the bf16 attention kernel at every head dim),
-   to the tolerances of tests/test_kernels.py, printing which SSD kernel
-   (wgmma or CUDA cores) and how many segments each case ran; times at
-   the models' shapes, both counts of the SSD bound, and SDPA on the same
-   mask as the attention's library time; the attention at its model
-   shape on five more seeds, reported, with |SDPA - plain| on all six;
+   to the tolerances of tests/test_kernels.py (the RG-LRU scan
+   bit-equal on every case, through both its kernels: the TMA ring and
+   the per-thread one), printing which SSD kernel (wgmma or CUDA cores)
+   and how many segments, and which RG-LRU kernel and tile, each case
+   ran; times at the models' shapes, both counts of the SSD bound, SDPA
+   on the same mask as the attention's library time, and one
+   elementwise pass over the RG-LRU scan's bytes beside it; the
+   attention at its model shape on five more seeds, held under
+   FLASH_MODEL_TOL, with |SDPA - plain|, the share of outputs that
+   differ and the largest |plain| among them on all six;
    the SSD scan at its model shape on five more seeds, held per head,
    with the wgmma kernel timed at segment counts beside the rule's; every
    bf16 SSD result held to the plain version's fp32 result beyond bf16's
@@ -586,14 +591,27 @@ FLASH_CASES = [
     (1, 200, 200, 4, 2, 256, True, None, "bfloat16", 2e-2),
     (2, 100, 150, 4, 2, 128, False, None, "bfloat16", 2e-2),
 ]
-# (b, s, w, dtype, tol): the model's shape, then odd ones.
 # At the model's shape an output row averages ~2048 keys, so a typical |o|
-# is ~0.036 and 2e-2 is about half of it: there the kernel is also held at
-# a bound set from the CUDA-core kernel's reading on the H100 (1.95e-3).
-FLASH_MODEL_TOL = 5e-3
-RGLRU_MODEL = (2, 4096, 4096, "float32", 1e-5)
-RGLRU_CASES = [RGLRU_MODEL, (2, 200, 128, "float32", 1e-5),
-               (3, 77, 100, "float32", 1e-5), (1, 130, 128, "bfloat16", 2e-2)]
+# is ~0.036 and 2e-2 is about half of it: there the kernel is also held,
+# on the script's seed and five more, under FLASH_MODEL_TOL, set from two
+# yardsticks and not from the kernel: the reference's own spread (the
+# Pallas kernel in interpret mode against the plain version on the CPU,
+# at a cut of this shape: up to 0.0039 on six seeds,
+# tests/test_torch_model_kernels.py::test_flash_model_cut_spread, which
+# holds it under the same bound) and |SDPA - plain| here (up to 0.0078).
+# Both only flip the bf16 rounding of a few outputs: one ulp of an output
+# in [1, 2) is 0.0078.
+FLASH_MODEL_TOL = 1e-2
+# (b, s, w, dtype, element offset of the views): the model's shape, then
+# odd ones; each held bit-equal to the plain version.  The wrapper's rule
+# (rglru_scan.plan) sends the first five to the TMA ring (S and W not
+# tile multiples, batch 3, bf16) and the last two to the per-thread
+# kernel (200-byte bf16 rows; a view 4 bytes off 16-byte alignment).
+RGLRU_MODEL = (2, 4096, 4096, "float32", 0)
+RGLRU_CASES = [RGLRU_MODEL, (2, 200, 128, "float32", 0),
+               (3, 77, 100, "float32", 0), (1, 130, 128, "bfloat16", 0),
+               (2, 300, 72, "bfloat16", 0), (3, 77, 100, "bfloat16", 0),
+               (2, 100, 64, "float32", 1)]
 # (b, s, h, hd, n, dtype, tol on max |d| / max |plain|, the sweep's own
 # measure): the model's prefill shape (mamba2-130m, B=4 x S=8192), the
 # four of test_ssd_scan_sweep, then S not a multiple of the chunk and the
@@ -832,6 +850,95 @@ def ssd_checks(device, gen, rows) -> float:
     return err_ssd
 
 
+RGLRU_HOST_PASSES = 5
+
+
+def rglru_checks(device, gen, rows) -> float:
+    """The RG-LRU scan on every ``RGLRU_CASES`` entry, bit-equal to its
+    plain version, with the kernel and tile the wrapper's rule took; at
+    the model's shape its time beside the bound, the plain version, one
+    elementwise pass over the same bytes (``torch.add(a, b)``: the card's
+    practical rate for them, not the same function), the per-thread
+    kernel (bit-equal too) and the host time of a call on each kernel.
+    Returns the largest |kernel - plain| (0 where all are equal)."""
+    import torch
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_plain
+    from repro_torch.kernels.rglru_scan.rglru_scan import (TMA_TILE, launch,
+                                                           plan)
+    err_rg = 0.0
+    for case in RGLRU_CASES:
+        b, s, w, dtype, offset = case
+        td = getattr(torch, dtype)
+
+        def view(x):
+            flat = torch.empty(x.numel() + offset, device=device, dtype=td)
+            return flat[offset:].view(x.shape).copy_(x)
+        a = view(torch.rand((b, s, w), generator=gen, device=device) * 0.299
+                 + 0.7)
+        bb = view(torch.randn((b, s, w), generator=gen, device=device) * 0.1)
+        kernel = plan(td, w, (a.data_ptr(), bb.data_ptr()))
+        got, want = rglru_scan(a, bb), rglru_scan_plain(a, bb)
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.equal(got, want),
+              f"rglru_scan != plain at {case}: max |d| {err}")
+        err_rg = max(err_rg, err)
+        line = (f"[kernels] rglru_scan b={b} s={s} w={w} {dtype} offset "
+                f"{offset}: kernel {kernel}"
+                + (" C={} D={} K={}".format(*TMA_TILE[td])
+                   if kernel == "tma" else "")
+                + ", bit-equal to plain")
+        if case is RGLRU_MODEL:
+            nbytes, ops = 3 * a.numel() * a.element_size(), 2 * a.numel()
+            bnd, by = bound(nbytes, ops, ALU_OPS_PER_S)
+            out = torch.empty_like(a)
+            rows["rglru_scan"] = {
+                "ms": ms_per_call(lambda: rglru_scan(a, bb), 20, device),
+                "plain_ms": ms_per_call(lambda: rglru_scan_plain(a, bb), 2,
+                                        device),
+                "library_ms": None, "bound_ms": bnd, "bound_by": by,
+                "bytes": nbytes, "ops": ops}
+            add_ms = ms_per_call(lambda: torch.add(a, bb, out=out), 20,
+                                 device)
+            check(torch.equal(launch(a, bb, "ldg"), got),
+                  "rglru_scan's per-thread kernel != plain at the model's "
+                  "shape")
+            ldg_ms = ms_per_call(lambda: launch(a, bb, "ldg"), 20, device)
+            line += (f"; kernel {rows['rglru_scan']['ms']:.4g} ms, plain "
+                     f"{rows['rglru_scan']['plain_ms']:.4g} ms, bound "
+                     f"{bnd:.4g} ms by {by}; torch.add over the same "
+                     f"{nbytes / 1e6:.0f} MB {add_ms:.4g} ms "
+                     f"({nbytes / add_ms / 1e9:.4g} TB/s, the kernel "
+                     f"{nbytes / rows['rglru_scan']['ms'] / 1e9:.4g} TB/s); "
+                     f"per-thread kernel {ldg_ms:.4g} ms")
+            host = {"tma": [], "ldg": []}
+            for _ in range(RGLRU_HOST_PASSES):
+                for k in host:
+                    torch.cuda.synchronize(device)
+                    t0 = time.perf_counter()
+                    for _ in range(10):
+                        launch(a, bb, k)
+                    host[k].append((time.perf_counter() - t0) * 1e6 / 10)
+            torch.cuda.synchronize(device)
+            host = {k: float(np.median(v)) for k, v in host.items()}
+            line += (f"; host us per call (enqueue, median of "
+                     f"{RGLRU_HOST_PASSES} x 10) tma {host['tma']:.1f}, ldg "
+                     f"{host['ldg']:.1f}")
+            del out
+        print(line, flush=True)
+        del a, bb, got, want
+    return err_rg
+
+
+def flip_stats(diff, want) -> tuple[float, float]:
+    """(share of the outputs where kernel and plain differ, the largest
+    |plain| among them): one bf16 ulp of an output under 2 in magnitude is
+    at most 2^-7 = 0.0078, under FLASH_MODEL_TOL."""
+    flip = diff > 0
+    return (float(flip.float().mean()),
+            float(want.float().abs()[flip].max()) if flip.any() else 0.0)
+
+
 def phase_model_kernels(device):
     """Flash attention, the RG-LRU scan and the SSD scan against their
     plain versions on the card, at the models' shapes and at odd ones;
@@ -844,8 +951,6 @@ def phase_model_kernels(device):
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import (
         BLOCK_K, BLOCK_Q, flash_attention_plain)
-    from repro_torch.kernels.rglru_scan import rglru_scan
-    from repro_torch.kernels.rglru_scan.ref import rglru_scan_plain
     gen = torch.Generator(device).manual_seed(SEED)
     rows = {}
     err_fa = 0.0
@@ -879,10 +984,9 @@ def phase_model_kernels(device):
         if case is FLASH_MODEL:
             check(err < FLASH_MODEL_TOL, f"flash_attention != plain at the "
                   f"model's shape: {err} >= {FLASH_MODEL_TOL}")
+            flips = [flip_stats(diff, want[:, :, :sq])]
             line += (f" and < {FLASH_MODEL_TOL} (mean |plain| "
-                     f"{float(want[:, :, :sq].float().abs().mean()):.3g}; "
-                     f"{float((diff > 0).float().mean()):.3g} of the "
-                     f"outputs differ)")
+                     f"{float(want[:, :, :sq].float().abs().mean()):.3g})")
             nbytes, ops = flash_work(*case[:9])
             bnd, by = bound(nbytes, ops, BF16_OPS_PER_S)
             qp = torch.arange(q.shape[2], device=device)[:, None]
@@ -911,11 +1015,10 @@ def phase_model_kernels(device):
             del sdpa, mask, ke, ve
         print(line, flush=True)
         del q, k, v, got, want, diff
-    # The model's shape on other seeds, reported and not held: the scores'
-    # last bits (tensor-core sums against the plain version's fp32 ones)
-    # flip the bf16 rounding of a few probabilities, which moves ~0.8 % of
-    # the outputs by one bf16 ulp, and an ulp of an output in [1, 2) is
-    # 0.0078 > FLASH_MODEL_TOL.
+    # The model's shape on five more seeds, held under FLASH_MODEL_TOL
+    # after all are printed: the scores' last bits (tensor-core sums
+    # against the plain version's fp32 ones) flip the bf16 rounding of a
+    # few probabilities, which moves ~0.8 % of the outputs by one bf16 ulp.
     kw = dict(causal=True, window=FLASH_MODEL[7], scale=1.0,
               seq_k=FLASH_MODEL[2])
     errs, sq = [], FLASH_MODEL[1]
@@ -926,6 +1029,7 @@ def phase_model_kernels(device):
         got = flash_attention_fwd(q, k, v, **kw)[:, :, :sq].float()
         want = flash_attention_plain(q, k, v, **kw)[:, :, :sq].float()
         errs.append(float((got - want).abs().max()))
+        flips.append(flip_stats((got - want).abs(), want))
         qp = torch.arange(q.shape[2], device=device)[:, None]
         kp = torch.arange(k.shape[2], device=device)[None, :]
         mask = (kp <= qp) & (qp - kp < kw["window"]) & (kp < kw["seq_k"])
@@ -936,38 +1040,16 @@ def phase_model_kernels(device):
         sdpa_errs.append(float((sdpa - want).abs().max()))
         del q, k, v, got, want, sdpa, mask
     print(f"[kernels] flash_attention at the model's shape on seeds "
-          f"{SEED + 1}-{SEED + 5} (reported, not held): max |kernel - plain| "
-          f"{errs}; |SDPA - plain| on seeds {SEED}-{SEED + 5}: {sdpa_errs}",
-          flush=True)
-    err_rg = 0.0
-    for case in RGLRU_CASES:
-        b, s, w, dtype, tol = case
-        td = getattr(torch, dtype)
-        a = (torch.rand((b, s, w), generator=gen, device=device) * 0.299
-             + 0.7).to(td)
-        bb = (torch.randn((b, s, w), generator=gen, device=device)
-              * 0.1).to(td)
-        got, want = rglru_scan(a, bb), rglru_scan_plain(a, bb)
-        err = float((got.float() - want.float()).abs().max())
-        check(math.isfinite(err) and err < tol,
-              f"rglru_scan != plain at {case}: {err}")
-        err_rg = max(err_rg, err)
-        line = (f"[kernels] rglru_scan b={b} s={s} w={w} {dtype}: max "
-                f"|kernel - plain| {err:.3g} < {tol}")
-        if case is RGLRU_MODEL:
-            nbytes, ops = 3 * a.numel() * a.element_size(), 2 * a.numel()
-            bnd, by = bound(nbytes, ops, ALU_OPS_PER_S)
-            rows["rglru_scan"] = {
-                "ms": ms_per_call(lambda: rglru_scan(a, bb), 20, device),
-                "plain_ms": ms_per_call(lambda: rglru_scan_plain(a, bb), 2,
-                                        device),
-                "library_ms": None, "bound_ms": bnd, "bound_by": by,
-                "bytes": nbytes, "ops": ops}
-            line += (f"; kernel {rows['rglru_scan']['ms']:.4g} ms, plain "
-                     f"{rows['rglru_scan']['plain_ms']:.4g} ms, bound "
-                     f"{bnd:.4g} ms by {by}")
-        print(line, flush=True)
-        del a, bb, got, want
+          f"{SEED + 1}-{SEED + 5}: max |kernel - plain| {errs} < "
+          f"{FLASH_MODEL_TOL}; |SDPA - plain| on seeds {SEED}-{SEED + 5}: "
+          f"{sdpa_errs}; on seeds {SEED}-{SEED + 5}, the share of the "
+          f"kernel's outputs that differ from plain "
+          f"{[float(f'{f:.4g}') for f, _ in flips]} and the largest |plain| "
+          f"among them {[float(f'{m:.4g}') for _, m in flips]}", flush=True)
+    check(all(e < FLASH_MODEL_TOL for e in errs),
+          f"flash_attention != plain at the model's shape on seeds "
+          f"{SEED + 1}-{SEED + 5}: {errs}, bound {FLASH_MODEL_TOL}")
+    err_rg = rglru_checks(device, gen, rows)
     err_ssd = ssd_checks(device, gen, rows)
     torch.cuda.empty_cache()
     return rows, {"flash_attention": err_fa, "rglru_scan": err_rg,
@@ -1097,7 +1179,7 @@ def phase_smoke_model(device, arch):
 
 
 # Function names of the port's CUDA kernels, as the profiler shows them.
-PORT_KERNEL_NAMES = ("flash_fwd", "rglru_scan_kernel", "ssd_scan_kernel",
+PORT_KERNEL_NAMES = ("flash_fwd", "rglru_scan", "ssd_scan_kernel",
                      "ssd_tc_kernel", "wavefront_search", "slot_score",
                      "fused_prepare")
 

@@ -58,8 +58,10 @@ KERNELS = {
     # window (0 = none), bf16, scale, stream
     "flash_attention": Kernel("flash_attention", ("csrc/hopper.cuh",),
                               (_P,) * 4 + (_I,) * 10 + (_F, _P)),
-    # a, b, y, batch, seq, width, bf16, stream
-    "rglru_scan": Kernel("rglru_scan", (), (_P,) * 3 + (_I,) * 4 + (_P,)),
+    # a, b, y, batch, seq, width, bf16, kernel (0 per-thread loads, 1 TMA
+    # ring), stream
+    "rglru_scan": Kernel("rglru_scan", ("csrc/hopper.cuh",),
+                         (_P,) * 3 + (_I,) * 5 + (_P,)),
     # x, dt, B, C, A, y, ends, logs, batch, seq, heads, head_dim, d_state,
     # x strides (3), dt strides (3), B strides (2), C strides (2), bf16,
     # kernel (0 CUDA cores, 1 wgmma), chunks per segment, stream

@@ -1,5 +1,5 @@
-from . import ops, ref
-from .ops import rglru_scan
+from . import ref
 from .rglru_scan import rglru_scan_fwd
+from .rglru_scan import rglru_scan_fwd as rglru_scan
 
-__all__ = ["ops", "ref", "rglru_scan", "rglru_scan_fwd"]
+__all__ = ["ref", "rglru_scan", "rglru_scan_fwd"]
