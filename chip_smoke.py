@@ -9,12 +9,23 @@ Phases (each prints its lines; any failure exits non-zero):
 
 1. build — compile the six kernels from ``src/repro_torch/kernels/*/csrc``
    (one nvcc each, in parallel); registers, spills and any serialized
-   wgmma per instantiation; the SSD wgmma kernel must have neither;
+   wgmma per instantiation; the SSD wgmma kernel must have neither, the
+   search and fused prepare kernels no spills;
 2. kernels — wavefront search, slot scoring and fused prepare against
    their plain PyTorch versions on the card, bit-equal, at the paper mesh
-   (8x8x4) with 16 and 32 slots and batches of 64, 1000 and 1024, on
-   occupancy taken from a real allocator state; times at the main
-   path's shape (a 64-request search wave, 16 slots);
+   (8x8x4) with 16 and 32 slots and batches of 1, 64, 1000 and 1024, on
+   occupancy taken from a real allocator state, then at one request and
+   a wave on the meshes and slot counts of ``SLOT_CASES`` (1 to 32 slots,
+   4x4x2 to 16x16x12 = MAX_NODES) on seeded random occupancy; at every
+   shape also through the wrappers the allocator calls (the search round
+   and two fused waves on a side stream through the reused staging
+   buffers, the first wave's vectors read after the second's launch);
+   times at 1, 64 and 1024 requests (16 slots): CUDA events over
+   back-to-back launches and the profiler's kernel duration, beside an
+   empty kernel launched the same way (the launch floor) and the bound
+   in two counts (bytes or operations, and that taken with the launch
+   floor: the profiler's beside the kernel duration, the event floor
+   beside the event time);
 3. model kernels — flash attention, the RG-LRU scan and the SSD scan
    against their plain versions at the models' prefill shapes (B=2,
    S=4096, 16/1 heads of 256, window 2048, bf16; (2, 4096, 4096) fp32;
@@ -47,8 +58,11 @@ Phases (each prints its lines; any failure exits non-zero):
    it and read just after: its own kernels (``PATH_KERNELS``) must have
    launched, and no other;
 5. timing — µs per allocation of each path over rotated rounds (median
-   and range), and the host time of one split-pipeline scoring round on
-   the scoring kernel against numpy (the allocator's choice);
+   and range), the host time of one split-pipeline scoring round on
+   the scoring kernel against numpy (the allocator's choice), the host
+   µs per call of the allocator's two device calls (a fused wave, a
+   search round) at 1 and 64 requests, and each path's kernel time with
+   every launch priced at its own batch size's time;
 6. models — ``recurrentgemma-smoke`` and ``mamba2-smoke`` on the card
    against the CPU plain versions; then ``recurrentgemma-9b`` and
    ``mamba2-130m`` at full width and depth from seeded weights on the
@@ -62,6 +76,8 @@ Phases (each prints its lines; any failure exits non-zero):
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -178,18 +194,35 @@ def occupied_table(mesh, n_slots: int, device):
 
 
 def kernel_inputs(mesh, n_slots: int, B: int, device, rng):
+    """Seeded requests: a lone request is the mesh's longest (corner to
+    corner, the deepest chain of layers); a wave holds pad rows (src =
+    dst = 0), zero-distance requests and that corner request among random
+    ones, so one request and a wave carry the same deepest chain."""
     import torch
     from repro_torch.core.bitvec import full_mask, packed_tensor
     srcs = rng.integers(mesh.n_nodes, size=B)
     dsts = rng.integers(mesh.n_nodes, size=B)
-    srcs[:2] = dsts[:2] = 0           # power-of-two pad rows: src = dst = 0
-    dsts[2:6] = srcs[2:6]             # zero-distance requests
+    if B == 1:
+        srcs[0], dsts[0] = 0, mesh.n_nodes - 1
+    else:
+        srcs[:2] = dsts[:2] = 0       # power-of-two pad rows: src = dst = 0
+        dsts[2:6] = srcs[2:6]         # zero-distance requests
+        srcs[6], dsts[6] = 0, mesh.n_nodes - 1
     init = rng.integers(0, full_mask(n_slots) + 1, size=B,
                         dtype=np.uint64).astype(np.uint32)
     t_ready = rng.integers(3, 2 ** 20, size=B)
     as_t = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
     return (as_t(srcs), as_t(dsts), packed_tensor(init, device),
             as_t(t_ready), srcs, dsts)
+
+
+def random_occupancy(mesh, n_slots: int, device, rng):
+    """Seeded occupancy with each slot busy with probability 1/4."""
+    from repro_torch.core.bitvec import full_mask, packed_tensor
+    a, b = (rng.integers(0, 2 ** 32, size=(mesh.n_nodes, 7), dtype=np.uint64)
+            for _ in range(2))
+    return packed_tensor((a & b & full_mask(n_slots)).astype(np.uint32),
+                         device)
 
 
 def ms_per_call(fn, reps: int, device) -> float:
@@ -213,15 +246,19 @@ def ms_per_call(fn, reps: int, device) -> float:
     return a.elapsed_time(b) / reps
 
 
-def raw_launcher(name: str, device, *args):
-    """A zero-overhead relaunch of kernel ``name`` for timing: the C
-    entry point with its arguments resolved once (these launches are
-    not counted; they only measure)."""
+def raw_launcher(name: str, device, *args, entry=None):
+    """A zero-overhead relaunch of kernel ``name`` for timing: its C
+    entry point (or ``entry`` = (symbol, argument types) of its library)
+    with its arguments resolved once.  These launches are not counted;
+    they only measure."""
     import torch
     from repro_torch.kernels import _lib
-    if device.type != "cuda":
-        return None
-    fn = getattr(_lib.library(name), f"{name}_launch")
+    lib = _lib.library(name)
+    if entry is None:
+        fn = getattr(lib, f"{name}_launch")
+    else:
+        fn = getattr(lib, entry[0])
+        fn.argtypes, fn.restype = list(entry[1]), ctypes.c_int
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
 
@@ -230,6 +267,21 @@ def raw_launcher(name: str, device, *args):
         if rc:
             raise SmokeFailure(f"{name} relaunch failed with CUDA error {rc}")
     return go
+
+
+def profiled_ms(launchers: dict, reps: int) -> dict:
+    """Kernel duration per launch from the profiler (``profile_call``'s
+    route) over ``reps`` launches of each of ``launchers`` in one
+    profile: name -> ms, or the reason it could not be measured."""
+    prof = profile_call(lambda: [fn() for fn in launchers.values()
+                                 for _ in range(reps)])
+    out = {}
+    for name in launchers:
+        hit = [r for r in prof.get("port_kernels", [])
+               if SLOT_KERNEL_FN[name] in r["name"]]
+        out[name] = (hit[0]["ms"] / hit[0]["calls"] if hit
+                     else prof.get("not_measured", "no device time"))
+    return out
 
 
 def work(mesh, n_slots: int, srcs: np.ndarray, dsts: np.ndarray):
@@ -257,99 +309,249 @@ def work(mesh, n_slots: int, srcs: np.ndarray, dsts: np.ndarray):
     }
 
 
-def phase_kernels(mesh, device, batches=(64, 1000, 1024), slots=(16, 32),
-                  reps=200):
-    """Every kernel against its plain version at the given shapes;
-    returns the timed kernel-table rows and each kernel's largest
-    |kernel - plain| over all shapes."""
+# Function names of the slot kernels and of the launch floor, as the
+# profiler shows them.
+SLOT_KERNEL_FN = {"wavefront_search": "wavefront_search_kernel",
+                  "slot_score": "slot_score_kernel",
+                  "fused_prepare": "fused_prepare_kernel",
+                  "launch_floor": "launch_floor_kernel"}
+# The C entry point of the launch floor: an empty kernel on the search's
+# grid, in the search's library (csrc/wavefront_search.cu).
+FLOOR_ENTRY = ("wavefront_search_floor_launch",
+               (ctypes.c_int, ctypes.c_void_p))
+# Beyond the paper mesh on its real occupancy, (mesh dims, n_slots) held
+# bit-equal at one request and at a wave on seeded random occupancy: 1
+# slot on the paper mesh; two small meshes (one odd) and the largest the
+# kernels take (16x16x12 = MAX_NODES: 156 KB of shared memory a CTA),
+# each at 1, 16 and 32 slots.
+SLOT_CASES = [((8, 8, 4), 1)] + [(dims, k) for dims in ((4, 4, 2), (5, 4, 3),
+                                                       (16, 16, 12))
+                                 for k in (1, 16, 32)]
+TIMED_BATCHES = (1, WAVE, 1024)
+
+
+def hold_slot_kernels(mesh, n_slots: int, occ, B: int, device, rng):
+    """The three slot kernels against their plain versions on one seeded
+    batch: (search, score, fused) max |kernel - plain|, the inputs, the
+    plain fused flags, and the scoring kernel's inputs."""
     import torch
     from repro_torch.core import PORT_LOCAL
-    from repro_torch.core.bitvec import as_i32_bits, as_i64
+    from repro_torch.core.bitvec import as_i64
     from repro_torch.kernels.slot_alloc import fused as kf
     from repro_torch.kernels.slot_alloc import slot_alloc as ks
-    rng = np.random.default_rng(SEED)
+    inputs = kernel_inputs(mesh, n_slots, B, device, rng)
+    s, d, init, t, srcs_np, dsts_np = inputs
+    kw = dict(mesh=mesh, n_slots=n_slots)
+    got = ks.wavefront_search_packed(occ, s, d, init, **kw)
+    want = ks.wavefront_search_plain(occ, s, d, init, **kw)
+    err_s = int((as_i64(got) - as_i64(want)).abs().max())
+    # scoring, on the real availability vectors
+    avail = want[torch.arange(B, device=device), d] | as_i64(occ)[d, PORT_LOCAL]
+    dist = torch.as_tensor(np.abs(mesh.coord_array[srcs_np]
+                                  - mesh.coord_array[dsts_np]).sum(1),
+                           device=device)
+    got_c = kf.slot_score(avail, dist, t, n_slots=n_slots)
+    want_c = kf.slot_score_plain(avail, dist, t, n_slots)
+    err_c = int((got_c.long() - want_c.long()).abs().max())
+    gi, gf, gv = kf.fused_prepare_packed(occ, s, d, t, **kw)
+    wi, wf, wv = kf.fused_prepare_plain(occ, s, d, t, **kw)
+    err_f = max(int((gi.long() - wi.long()).abs().max()),
+                int((gf.long() - wf.long()).abs().max()),
+                int((as_i64(gv) - as_i64(wv)).abs().max()))
+    host_s, host_f = hold_allocator_calls(mesh, n_slots, occ, inputs, want,
+                                          (wi, wf, wv), device)
+    return ((max(err_s, host_s), err_c, max(err_f, host_f)), inputs, wf,
+            (avail, dist))
+
+
+def fused_words(fp) -> tuple[np.ndarray, np.ndarray]:
+    """A :class:`FusedPrepare`'s (ints, flags) as int64, laid out as
+    ``fused_prepare_plain`` returns them."""
+    ints = np.concatenate([fp.starts[:, None], fp.arr[:, None],
+                           fp.dists[:, None], fp.hop_n, fp.hop_p, fp.hop_s],
+                          1)
+    flags = np.concatenate([fp.denied[:, None], fp.ok[:, None], fp.free], 1)
+    return ints.astype(np.int64), flags.astype(np.int64)
+
+
+def hold_allocator_calls(mesh, n_slots: int, occ, inputs, want_search,
+                         want_fused, device) -> tuple[int, int]:
+    """The wrappers the allocator calls, against the plain versions on
+    the same inputs: the search round (``ops.wavefront_search_host``:
+    host arrays through a reused pinned buffer), and two fused waves
+    (``fused_prepare_start`` on a side stream, then
+    ``fused_prepare_wait``), the second with its rows reversed and
+    launched before the first wave's vectors are read, so a staging
+    buffer reused while a ``FusedPrepare`` can still read it shows.
+    Returns max |wrapper - plain| of (search, fused: ints, flags and
+    vectors)."""
+    import torch
+    from repro_torch.core.bitvec import packed_numpy
+    from repro_torch.kernels.slot_alloc import fused as kf
+    from repro_torch.kernels.slot_alloc import ops as kops
+    _s, _d, init, t, srcs_np, dsts_np = inputs
+    kw = dict(mesh=mesh, n_slots=n_slots)
+    i64 = lambda a: np.asarray(a).astype(np.int64)      # noqa: E731
+    got = kops.wavefront_search_host(occ, srcs_np, dsts_np,
+                                     packed_numpy(init), **kw)
+    err_s = int(np.abs(i64(got) - i64(packed_numpy(want_search))).max())
+    wi, wf = (i64(x.cpu().numpy()) for x in want_fused[:2])
+    wv = i64(packed_numpy(want_fused[2]))
+    t_np = t.cpu().numpy()
+    side = torch.cuda.Stream(device)
+    waves = []
+    for order in (slice(None), slice(None, None, -1)):
+        fp = kf.fused_prepare_wait(kf.fused_prepare_start(
+            occ, srcs_np[order], dsts_np[order], t_np[order], stream=side,
+            **kw))
+        waves.append((fp, order))
+    err_f = 0
+    for fp, order in waves[::-1]:     # the first wave's vectors read last
+        gi, gf = fused_words(fp)
+        err_f = max(err_f, int(np.abs(gi - wi[order]).max()),
+                    int(np.abs(gf - wf[order]).max()),
+                    int(np.abs(i64(fp.vecs_np()) - wv[order]).max()))
+    return err_s, err_f
+
+
+def slot_raw(mesh, n_slots: int, occ, inputs, score_in, device) -> dict:
+    """Raw launchers of the slot kernels on ``inputs`` (as
+    :func:`kernel_inputs` gives them), each with its own output buffers;
+    the scoring kernel's only with its inputs ``score_in``."""
+    import torch
+    from repro_torch.core.bitvec import as_i32_bits
+    from repro_torch.kernels.slot_alloc import fused as kf
+    s, d, init, t, srcs_np, _dsts_np = inputs
+    B, dims = len(srcs_np), (mesh.X, mesh.Y, mesh.Z)
+    occ32 = as_i32_bits(occ).contiguous()
+    i32 = lambda *xs: torch.stack([x.to(device, torch.int32)   # noqa: E731
+                                   for x in xs])
+    out = torch.empty((B, mesh.n_nodes), dtype=torch.int32, device=device)
+    res = torch.empty(kf.result_words(B, mesh, n_slots), dtype=torch.int32,
+                      device=device)
+    kern = {
+        "wavefront_search": raw_launcher(
+            "wavefront_search", device, occ32, i32(s, d, as_i32_bits(init)),
+            None, out, None, B, *dims, n_slots),
+        "fused_prepare": raw_launcher(
+            "fused_prepare", device, occ32, i32(s, d, t), None, res, None,
+            out, B, *dims, n_slots),
+    }
+    if score_in is not None:
+        avail, dist = score_in
+        cost = torch.empty((B, n_slots), dtype=torch.int32, device=device)
+        kern["slot_score"] = raw_launcher(
+            "slot_score", device, as_i32_bits(avail), dist.to(torch.int32),
+            t.to(torch.int32), cost, B, n_slots)
+    return kern
+
+
+def time_slot_kernels(mesh, n_slots: int, occ, inputs, score_in, device,
+                      reps: int):
+    """Event and profiler times of the three slot kernels and of the
+    launch floor on one batch, with each kernel's plain time and its
+    bound in two counts: bytes or operations, and that taken together
+    with the launch floor, each floor beside the timing it shares a
+    route with (the profiler's floor with the kernel duration, the
+    event floor, which includes the host's enqueue, with the event
+    time)."""
+    from repro_torch.kernels.slot_alloc import fused as kf
+    from repro_torch.kernels.slot_alloc import slot_alloc as ks
+    s, d, init, t, srcs_np, dsts_np = inputs
+    avail, dist = score_in
+    B, kw = len(srcs_np), dict(mesh=mesh, n_slots=n_slots)
+    kern = slot_raw(mesh, n_slots, occ, inputs, score_in, device)
+    kern["launch_floor"] = raw_launcher("wavefront_search", device, B,
+                                        entry=FLOOR_ENTRY)
+    plain = {
+        "wavefront_search": lambda: ks.wavefront_search_plain(
+            occ, s, d, init, **kw),
+        "slot_score": lambda: kf.slot_score_plain(avail, dist, t, n_slots),
+        "fused_prepare": lambda: kf.fused_prepare_plain(occ, s, d, t, **kw),
+    }
+    event = {k: ms_per_call(fn, reps, device) for k, fn in kern.items()}
+    prof = profiled_ms(kern, reps)
+    floor = {"ms": event["launch_floor"], "kernel_ms": prof["launch_floor"]}
+    wb = work(mesh, n_slots, srcs_np, dsts_np)
     rows = {}
+    for name, fn in plain.items():
+        nbytes, ops = wb[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / ALU_OPS_PER_S * 1e3
+        bnd = max(t_bytes, t_ops)
+        rows[name] = {
+            "ms": event[name], "kernel_ms": prof[name],
+            "plain_ms": ms_per_call(fn, max(5, reps // 20), device),
+            "bound_ms": bnd,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_floor_ms": max(bnd, floor["ms"]),
+            "bound_floor_kernel_ms": (max(bnd, floor["kernel_ms"])
+                                      if isinstance(floor["kernel_ms"], float)
+                                      else floor["kernel_ms"]),
+            "bytes": nbytes, "ops": ops}
+    return rows, floor
+
+
+def fmt_ms(x) -> str:
+    return f"{x:.5g}" if isinstance(x, float) else str(x)
+
+
+def phase_kernels(mesh, device, batches=(1, 64, 1000, 1024), slots=(16, 32),
+                  reps=200):
+    """Every slot kernel against its plain version: on the paper mesh at
+    ``batches`` x ``slots`` on occupancy from a real allocator state, then
+    at ``SLOT_CASES`` on seeded random occupancy; times at
+    ``TIMED_BATCHES`` (16 slots).  Returns the timed rows keyed (kernel,
+    B), the launch floor by B and each kernel's largest |kernel - plain|
+    over all shapes."""
+    from repro_torch.core import Mesh3D
+    rng = np.random.default_rng(SEED)
+    rows, floors = {}, {}
     max_err: dict[str, int] = {}
+    names = ("wavefront_search", "slot_score", "fused_prepare")
+
+    def hold(m, n_slots, occ, B, where):
+        errs, inputs, wf, score_in = hold_slot_kernels(m, n_slots, occ, B,
+                                                       device, rng)
+        for name, err in zip(names, errs):
+            max_err[name] = max(max_err.get(name, 0), err)
+        check(not any(errs), f"kernel != plain at {where} n_slots={n_slots} "
+              f"B={B}: search, score, fused {errs}")
+        return inputs, score_in, int(wf[:, 0].sum()), int((wf[:, 1] == 0)
+                                                          .sum())
+
     for n_slots in slots:
         occ, _alloc = occupied_table(mesh, n_slots, device)
         for B in batches:
-            s, d, init, t, srcs_np, dsts_np = kernel_inputs(
-                mesh, n_slots, B, device, rng)
-            kw = dict(mesh=mesh, n_slots=n_slots)
-            # -- search
-            got = ks.wavefront_search_packed(occ, s, d, init, **kw)
-            want = ks.wavefront_search_plain(occ, s, d, init, **kw)
-            err_s = int((as_i64(got) - as_i64(want)).abs().max())
-            # -- scoring, on the real availability vectors
-            avail = want[torch.arange(B, device=device), d] | as_i64(
-                occ)[d, PORT_LOCAL]
-            dist = torch.as_tensor(np.abs(mesh.coord_array[srcs_np]
-                                          - mesh.coord_array[dsts_np]).sum(1),
-                                   device=device)
-            got_c = kf.slot_score(avail, dist, t, n_slots=n_slots)
-            want_c = kf.slot_score_plain(avail, dist, t, n_slots)
-            err_c = int((got_c.long() - want_c.long()).abs().max())
-            # -- fused prepare
-            gi, gf, gv = kf.fused_prepare_packed(occ, s, d, t, **kw)
-            wi, wf, wv = kf.fused_prepare_plain(occ, s, d, t, **kw)
-            err_f = max(int((gi.long() - wi.long()).abs().max()),
-                        int((gf.long() - wf.long()).abs().max()),
-                        int((as_i64(gv) - as_i64(wv)).abs().max()))
-            for name, err in (("wavefront_search", err_s),
-                              ("slot_score", err_c), ("fused_prepare", err_f)):
-                max_err[name] = max(max_err.get(name, 0), err)
-            check(err_s == err_c == err_f == 0,
-                  f"kernel != plain at n_slots={n_slots} B={B}: search "
-                  f"{err_s} score {err_c} fused {err_f}")
-            nd = int(wf[:, 0].sum())
+            inputs, score_in, nd, nf = hold(mesh, n_slots, occ, B, "8x8x4")
             line = (f"[kernels] n_slots={n_slots} B={B}: search, score, "
-                    f"fused bit-equal to plain (tolerance 0; "
-                    f"{nd} denied rows)")
-            if n_slots == 16 and B in (WAVE, max(batches)):
-                wb = work(mesh, n_slots, srcs_np, dsts_np)
-                thr = ks.cta_threads(mesh.n_nodes)
-                X, Y, Z = mesh.X, mesh.Y, mesh.Z
-                occ32 = as_i32_bits(occ)
-                timed = {
-                    "wavefront_search": (
-                        raw_launcher("wavefront_search", device, occ32,
-                                     s.int(), d.int(), init, got, B, X, Y, Z,
-                                     n_slots, thr),
-                        lambda: ks.wavefront_search_plain(occ, s, d, init,
-                                                          **kw)),
-                    "slot_score": (
-                        raw_launcher("slot_score", device,
-                                     as_i32_bits(avail), dist.int(), t.int(),
-                                     got_c, B, n_slots),
-                        lambda: kf.slot_score_plain(avail, dist, t, n_slots)),
-                    "fused_prepare": (
-                        raw_launcher("fused_prepare", device, occ32, s.int(),
-                                     d.int(), t.int(), gi, gf, gv, B, X, Y,
-                                     Z, n_slots, thr),
-                        lambda: kf.fused_prepare_plain(occ, s, d, t, **kw)),
-                }
-                parts = []
-                for name, (kern, plain) in timed.items():
-                    nbytes, ops = wb[name]
-                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                    t_ops = ops / ALU_OPS_PER_S * 1e3
-                    row = {
-                        "ms": (ms_per_call(kern, reps, device)
-                               if kern else None),
-                        "plain_ms": ms_per_call(plain, max(5, reps // 20),
-                                                device),
-                        "bound_ms": max(t_bytes, t_ops),
-                        "bound_by": "bytes" if t_bytes >= t_ops
-                        else "operations",
-                        "bytes": nbytes, "ops": ops}
+                    f"fused bit-equal to plain (tolerance 0; {nd} denied "
+                    f"rows, {nf} failed walks)")
+            if n_slots == 16 and B in TIMED_BATCHES:
+                r, floors[B] = time_slot_kernels(mesh, n_slots, occ, inputs,
+                                                 score_in, device, reps)
+                for name, row in r.items():
                     rows[(name, B)] = row
-                    parts.append(f"{name} {row['ms']} ms (plain "
-                                 f"{row['plain_ms']} ms, bound "
-                                 f"{row['bound_ms']:.3g} ms by "
-                                 f"{row['bound_by']})")
-                line += "; " + "; ".join(parts)
+                line += "; " + "; ".join(
+                    f"{k} event {fmt_ms(v['ms'])} ms, kernel "
+                    f"{fmt_ms(v['kernel_ms'])} ms (plain "
+                    f"{fmt_ms(v['plain_ms'])} ms; bound {v['bound_ms']:.3g} "
+                    f"ms by {v['bound_by']}; with the launch floor "
+                    f"{fmt_ms(v['bound_floor_kernel_ms'])} ms by the "
+                    f"profiler, {fmt_ms(v['bound_floor_ms'])} ms by events)"
+                    for k, v in r.items())
+                line += (f"; launch floor event {fmt_ms(floors[B]['ms'])} "
+                         f"ms, kernel {fmt_ms(floors[B]['kernel_ms'])} ms")
             print(line, flush=True)
-    return rows, max_err
+    for dims, n_slots in SLOT_CASES:
+        m = Mesh3D(*dims, vault_span_y=1)
+        occ = random_occupancy(m, n_slots, device, rng)
+        stats = [hold(m, n_slots, occ, B, "x".join(map(str, dims)))[2:]
+                 for B in (1, WAVE)]
+        print(f"[kernels] {m.X}x{m.Y}x{m.Z} n_slots={n_slots} B=1 and "
+              f"{WAVE}: search, score, fused bit-equal to plain (tolerance "
+              f"0; denied rows, failed walks {stats})", flush=True)
+    return rows, floors, max_err
 
 
 # ---------------------------------------------------------------------------
@@ -403,11 +605,37 @@ def make_fabric(mesh, kind: str, device):
                      device=str(device))
 
 
-def phase_slice(mesh, device, chunks, cpu_check=True):
+# Where the batch size sits among each slot kernel's launch arguments
+# (after the device; ``_lib.KERNELS``).
+BATCH_ARG = {"wavefront_search": 5, "slot_score": 4, "fused_prepare": 6}
+
+
+@contextlib.contextmanager
+def batches_launched(out: dict):
+    """While active, add each slot-kernel launch to ``out[(kernel,
+    batch)]``: ``_lib.launch`` wrapped, its own count untouched."""
+    from repro_torch.kernels import _lib
+    launch = _lib.launch
+
+    def record(name, device, *args, **kw):
+        launch(name, device, *args, **kw)
+        if name in BATCH_ARG:
+            key = (name, int(args[BATCH_ARG[name]]))
+            out[key] = out.get(key, 0) + 1
+    _lib.launch = record
+    try:
+        yield out
+    finally:
+        _lib.launch = launch
+
+
+def phase_slice(mesh, device, chunks, cpu_check=True, batches=None):
     """The four paths on the device, each driven with the launch counts
     set to 0 just before it and read just after, checked against each
-    other, the plain CPU versions and the circuit invariants.  Returns
-    (stats, per-path launch counts)."""
+    other, the plain CPU versions and the circuit invariants; with a
+    ``batches`` dict, each path's launches by (kernel, batch) go into
+    ``batches[path]``.  Returns (stats, per-path launch counts, circuit
+    keys)."""
     from repro_torch.kernels import _lib
     n_slots = N_SLOTS
     reqs = [r for c in chunks for r in c]
@@ -415,7 +643,9 @@ def phase_slice(mesh, device, chunks, cpu_check=True):
     for kind in PATHS:
         fab = make_fabric(mesh, kind, device)
         _lib.reset_launch_counts()
-        res, reps, secs = drive(fab, chunks)
+        with (batches_launched(batches.setdefault(kind, {}))
+              if batches is not None else contextlib.nullcontext()):
+            res, reps, secs = drive(fab, chunks)
         launches[kind] = dict(_lib.launch_counts)
         runs[kind] = (fab, res, reps, secs)
         own = PATH_KERNELS[kind]
@@ -560,6 +790,72 @@ def phase_scoring(mesh, device, host_rounds: int,
           + f"; kernel scoring would add {per_alloc:.3f} us/alloc to the "
           "host path", flush=True)
     return out
+
+
+def phase_host_calls(mesh, device, batches=(1, WAVE), reps=200, blocks=5):
+    """Host µs per call of the allocator's two device calls, each ending
+    with its result on the host: one fused wave (``fused_prepare_start``
+    on the allocator's kind of side stream, then ``fused_prepare_wait``)
+    and one search round (``TdmAllocator._run_search``: requests up, one
+    launch, vectors down), at 1 and 64 requests on an unchanged
+    occupancy table (so no occupancy upload).  Median of ``blocks``
+    blocks of ``reps`` calls, the two calls in turns.  Uses only entry
+    points the allocator calls, so it runs on any version of the port."""
+    import torch
+    from repro_torch.core import TdmAllocator
+    from repro_torch.kernels.slot_alloc import fused as kf
+    rng = np.random.default_rng(SEED + 2)
+    occ, _alloc = occupied_table(mesh, N_SLOTS, device)
+    search = TdmAllocator(mesh, N_SLOTS, use_kernels=True, device=str(device))
+    occ_np = search.table.busy_masks(0)
+    side = torch.cuda.Stream(device)
+    out = {}
+    for B in batches:
+        srcs = rng.integers(mesh.n_nodes, size=B)
+        dsts = rng.integers(mesh.n_nodes, size=B)
+        t = rng.integers(3, 2 ** 20, size=B)
+        inits = np.zeros(B, np.uint32)
+        arms = {
+            "fused": lambda: kf.fused_prepare_wait(kf.fused_prepare_start(
+                occ, srcs, dsts, t, mesh=mesh, n_slots=N_SLOTS,
+                stream=side)),
+            "search": lambda: search._run_search(occ_np, 0, srcs, dsts,
+                                                 inits)}
+        times = {k: [] for k in arms}
+        for fn in arms.values():
+            fn()
+        for _ in range(blocks):
+            for k, fn in arms.items():
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                times[k].append((time.perf_counter() - t0) / reps * 1e6)
+        out[B] = {k: float(np.median(v)) for k, v in times.items()}
+    print("[host] us per call, median of "
+          f"{blocks} alternating blocks of {reps}: " + "; ".join(
+              f"B={B} fused start+wait {v['fused']:.2f}, search round "
+              f"{v['search']:.2f}" for B, v in out.items()), flush=True)
+    return out
+
+
+def price_launches(mesh, device, batches: dict, rows: dict) -> dict:
+    """Event ms of each (kernel, batch) the paths launched: from the
+    timed rows where phase 2 timed that batch, else timed here on seeded
+    requests of that size (16 slots, the paper mesh's real occupancy)."""
+    occ = None
+    rng = np.random.default_rng(SEED + 3)
+    price = {}
+    for key in sorted({k for per in batches.values() for k in per}):
+        if key in rows:
+            price[key] = rows[key]["ms"]
+            continue
+        if occ is None:
+            occ, _alloc = occupied_table(mesh, N_SLOTS, device)
+        name, B = key
+        inputs = kernel_inputs(mesh, N_SLOTS, B, device, rng)
+        price[key] = ms_per_call(slot_raw(mesh, N_SLOTS, occ, inputs, None,
+                                          device)[name], 200, device)
+    return price
 
 
 # ---------------------------------------------------------------------------
@@ -1181,7 +1477,7 @@ def phase_smoke_model(device, arch):
 # Function names of the port's CUDA kernels, as the profiler shows them.
 PORT_KERNEL_NAMES = ("flash_fwd", "rglru_scan", "ssd_scan_kernel",
                      "ssd_tc_kernel", "wavefront_search", "slot_score",
-                     "fused_prepare")
+                     "fused_prepare", "launch_floor")
 
 
 def profile_call(fn):
@@ -1462,30 +1758,39 @@ def main() -> int:
                                                       use)),
               f"the SSD wgmma kernel {fn} spills or has its wgmma "
               f"serialized: {use}")
+    for name in ("wavefront_search", "fused_prepare"):
+        for fn, use in regs.get(name, {}).items():
+            check(not re.search(r"spills (?!0/0 B)", use),
+                  f"the slot kernel {fn} spills: {use}")
 
-    rows, max_err = phase_kernels(PAPER_MESH, device)
+    rows, floors, max_err = phase_kernels(PAPER_MESH, device)
     model_rows, model_err = phase_model_kernels(device)
 
     chunks = make_stream(PAPER_MESH, N_TRANSFERS, SEED, N_FLUSHES)
-    stats, launches, keys = phase_slice(PAPER_MESH, device, chunks)
+    batches: dict = {}
+    stats, launches, keys = phase_slice(PAPER_MESH, device, chunks,
+                                        batches=batches)
     timing = phase_timing(PAPER_MESH, device, chunks, keys)
     phase_scoring(PAPER_MESH, device, launches["host"]["wavefront_search"])
+    phase_host_calls(PAPER_MESH, device)
 
     smi = nvidia_smi()
     print("[alloc] us/alloc median " + " ".join(
         f"{k} {np.median(v):.2f}" for k, v in timing.items())
         + f" ({smi})", flush=True)
-    # Upper estimate of the kernels' share of each path's wall time:
-    # every launch priced at its 64-request time (conflict re-searches
-    # launch 1-request waves, which take no longer).
+    # The kernels' share of each path's wall time: every launch priced at
+    # the event time of its own batch size.
+    price = price_launches(PAPER_MESH, device, batches, rows)
     share = {}
-    for kind, counts in launches.items():
-        kern_ms = sum(v * rows[(k, WAVE)]["ms"] for k, v in counts.items()
-                      if v)
+    for kind, per in batches.items():
+        kern_ms = sum(v * price[k] for k, v in per.items())
         share[kind] = (f"{kern_ms:.3f} ms of "
                        f"{stats[kind]['seconds'] * 1e3:.1f} ms "
-                       f"({100 * kern_ms / (stats[kind]['seconds'] * 1e3):.2f} %)")
-    print(f"[where] kernel time <= {json.dumps(share)}", flush=True)
+                       f"({100 * kern_ms / (stats[kind]['seconds'] * 1e3):.2f} %)"
+                       f"; launches by batch " + ", ".join(
+                           f"{k} B={b}: {v}" for (k, b), v in sorted(
+                               per.items())))
+    print(f"[where] kernel time {json.dumps(share)}", flush=True)
 
     for arch in MODELS:
         phase_smoke_model(device, arch)
@@ -1504,6 +1809,15 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms")})
+        if name not in model_rows:     # the slot kernels: B = 1 and 64
+            one = rows[(name, 1)]
+            kernels[-1].update({
+                "kernel_ms": row["kernel_ms"], "ms_b1": one["ms"],
+                "kernel_ms_b1": one["kernel_ms"],
+                "launch_floor_ms": floors[WAVE]["ms"],
+                "launch_floor_kernel_ms": floors[WAVE]["kernel_ms"],
+                "bound_floor_ms": row["bound_floor_ms"],
+                "bound_floor_kernel_ms": row["bound_floor_kernel_ms"]})
         if not any(name in own for own in PATH_KERNELS.values()) \
                 and name not in model_rows:
             kernels[-1]["note"] = ("launches on no path: the main path "

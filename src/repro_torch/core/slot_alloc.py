@@ -39,8 +39,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from .bitvec import bit_is_free, full_mask, packed_numpy, packed_tensor, \
-    rotr_np
+from .bitvec import bit_is_free, full_mask, packed_tensor, rotr_np
 from .topology import Mesh3D, N_PORTS, PORT_LOCAL, port_for
 
 
@@ -1242,11 +1241,11 @@ class TdmAllocator:
                 _wavefront_host(occ, self.mesh, self.n_slots, int(s),
                                 int(d), int(iv))
                 for s, d, iv in zip(srcs, dsts, inits)])
-        vecs = wavefront_search_batch(
+        from repro_torch.kernels.slot_alloc.ops import wavefront_search_host
+        return wavefront_search_host(
             self.table.device_busy_masks(window), srcs, dsts,
             np.asarray(inits, np.uint32), mesh=self.mesh,
             n_slots=self.n_slots)
-        return packed_numpy(vecs)
 
     def _prepare_states(self, reqs: list[CopyRequest], t_readys: np.ndarray,
                         window: int) -> list[_Prepared]:

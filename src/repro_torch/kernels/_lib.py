@@ -45,15 +45,16 @@ class Kernel:
 
 _SLOT_H = ("slot_alloc/csrc/slot_alloc.cuh",)
 KERNELS = {
-    # occ, srcs, dsts, init, out, batch, X, Y, Z, n_slots, threads, stream
+    # occ, req [srcs | dsts | init], req_host (or null), out, out_host (or
+    # null), batch, X, Y, Z, n_slots, stream
     "wavefront_search": Kernel("slot_alloc", _SLOT_H,
-                               (_P,) * 5 + (_I,) * 6 + (_P,)),
+                               (_P,) * 5 + (_I,) * 5 + (_P,)),
     # avail, dists, t_ready, cost, batch, n_slots, stream
     "slot_score": Kernel("slot_alloc", _SLOT_H, (_P,) * 4 + (_I,) * 2 + (_P,)),
-    # occ, srcs, dsts, t_ready, ints, flags, vecs, batch, X, Y, Z,
-    # n_slots, threads, stream
+    # occ, req [srcs | dsts | t_ready], req_host (or null), res [ints |
+    # flags], res_host (or null), vecs, batch, X, Y, Z, n_slots, stream
     "fused_prepare": Kernel("slot_alloc", _SLOT_H,
-                            (_P,) * 7 + (_I,) * 6 + (_P,)),
+                            (_P,) * 6 + (_I,) * 5 + (_P,)),
     # q, k, v, o, batch, hq, hkv, sq, sk, seq_k, head_dim, causal,
     # window (0 = none), bf16, scale, stream
     "flash_attention": Kernel("flash_attention", ("csrc/hopper.cuh",),
@@ -152,15 +153,18 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream: ``args``
-    are the C entry point's arguments before the stream (tensors are
-    passed as device pointers, numbers as the entry point declares
-    them).  Raises on a refused launch; counts the launch otherwise."""
+def launch(name: str, device: torch.device, *args,
+           stream: torch.cuda.Stream | None = None) -> None:
+    """Launch kernel ``name`` on ``stream`` (default: ``device``'s
+    current stream): ``args`` are the C entry point's arguments before
+    the stream (tensors are passed as device pointers, numbers as the
+    entry point declares them).  Raises on a refused launch; counts the
+    launch otherwise."""
     lib = library(name)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, f"{name}_launch")(*cargs, stream)
+    if stream is None:
+        stream = torch.cuda.current_stream(device)
+    rc = getattr(lib, f"{name}_launch")(*cargs, stream.cuda_stream)
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "

@@ -22,11 +22,16 @@ kernels score through one ``__device__`` function
 Each kernel has its plain PyTorch version here; the wrappers run the
 kernel for CUDA tensors and the plain version for CPU tensors.
 :func:`fused_prepare_start` launches on a side stream and records a CUDA
-event; :func:`fused_prepare_wait` waits on it.
+event; :func:`fused_prepare_wait` waits on it.  On the card a wave is
+one upload of the packed request words [srcs | dsts | t_ready], one
+launch and one pull of the packed result words (ints, then flags as
+bytes: :func:`result_words`) into a reused pinned buffer; the CPU path
+packs the plain version's outputs the same way, so both unpack alike.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -37,10 +42,11 @@ from repro_torch.core.topology import PORT_LOCAL, Mesh3D
 from repro_torch.device import resolve_device
 
 from .. import _lib
-from .slot_alloc import (_check_mesh, _geometry, cta_threads,
-                         wavefront_search_plain)
+from .slot_alloc import (Staging, _geometry, check_occ, give_staging,
+                         take_staging, wavefront_search_plain)
 
-__all__ = ["FAR32", "FusedPrepare", "t_ready_limit", "fused_prepare",
+__all__ = ["FAR32", "FusedPrepare", "t_ready_limit", "result_words",
+           "fused_prepare",
            "fused_prepare_packed", "fused_prepare_plain",
            "fused_prepare_start", "fused_prepare_wait", "slot_score",
            "slot_score_plain"]
@@ -154,6 +160,22 @@ def fused_prepare_plain(occ: torch.Tensor, srcs: torch.Tensor,
     return ints, flags, vecs
 
 
+def result_words(batch: int, mesh: Mesh3D, n_slots: int) -> int:
+    """int32 words of one wave's packed result: ints (B, 3 + 3L), then
+    flags (B, 2 + n_slots) as bytes, padded to a whole word."""
+    L = mesh.max_dist + 1
+    return batch * (3 + 3 * L) + -(-batch * (2 + n_slots) // 4)
+
+
+def _split_result(words, batch: int, mesh: Mesh3D, n_slots: int):
+    """(ints, flags) views of packed result words (numpy or tensor)."""
+    width = 3 + 3 * (mesh.max_dist + 1)
+    flags = words[batch * width:].view(
+        np.uint8 if isinstance(words, np.ndarray) else torch.uint8)
+    return (words[:batch * width].reshape(batch, width),
+            flags[:batch * (2 + n_slots)].reshape(batch, 2 + n_slots))
+
+
 def fused_prepare_packed(occ: torch.Tensor, srcs: torch.Tensor,
                          dsts: torch.Tensor, t_readys: torch.Tensor, *,
                          mesh: Mesh3D, n_slots: int):
@@ -163,24 +185,18 @@ def fused_prepare_packed(occ: torch.Tensor, srcs: torch.Tensor,
     if not occ.is_cuda:
         return fused_prepare_plain(occ, srcs, dsts, t_readys, mesh=mesh,
                                    n_slots=n_slots)
-    _check_mesh(mesh, n_slots)
+    occ = check_occ(occ, mesh, n_slots)
     dev = occ.device
-    if tuple(occ.shape) != (mesh.n_nodes, 7):
-        raise ValueError(f"occ must be ({mesh.n_nodes}, 7), got "
-                         f"{tuple(occ.shape)}")
     B = int(srcs.shape[0])
-    L = mesh.max_dist + 1
-    ints = torch.empty((B, 3 + 3 * L), dtype=torch.int32, device=dev)
-    flags = torch.empty((B, 2 + n_slots), dtype=torch.uint8, device=dev)
+    res = torch.empty(result_words(B, mesh, n_slots), dtype=torch.int32,
+                      device=dev)
     vecs = torch.empty((B, mesh.n_nodes), dtype=torch.int32, device=dev)
-    if B == 0:
-        return ints, flags, vecs
-    _lib.launch("fused_prepare", dev, as_i32_bits(occ).contiguous(),
-                srcs.to(dev, torch.int32).contiguous(),
-                dsts.to(dev, torch.int32).contiguous(),
-                t_readys.to(dev, torch.int32).contiguous(), ints, flags, vecs,
-                B, mesh.X, mesh.Y, mesh.Z, n_slots,
-                cta_threads(mesh.n_nodes))
+    if B:
+        req = torch.stack([x.to(dev, torch.int32)
+                           for x in (srcs, dsts, t_readys)])
+        _lib.launch("fused_prepare", dev, occ, req, None, res, None, vecs, B,
+                    mesh.X, mesh.Y, mesh.Z, n_slots)
+    ints, flags = _split_result(res, B, mesh, n_slots)
     return ints, flags, vecs
 
 
@@ -207,14 +223,16 @@ class FusedPrepare:
         return packed_numpy(self._vecs_dev)[:self._batch]
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class _Token:
-    ints: torch.Tensor        # host (pinned on CUDA) once the event fires
-    flags: torch.Tensor
-    vecs: torch.Tensor        # stays on the device
-    event: torch.cuda.Event | None
+    words: np.ndarray | None  # packed result (CPU), or None until waited
+    staging: Staging | None   # the wave's buffers (CUDA) until waited
+    vecs: torch.Tensor | None  # the (B, n) vectors (CPU), or None
     batch: int
     mesh: Mesh3D
+    n_slots: int
+    release: weakref.finalize | None = None
+    waited: FusedPrepare | None = None
 
 
 def fused_prepare_start(occ, srcs, dsts, t_readys, *, mesh: Mesh3D,
@@ -226,10 +244,13 @@ def fused_prepare_start(occ, srcs, dsts, t_readys, *, mesh: Mesh3D,
     (``SlotTable.device_busy_masks``) or host uint32 masks (uploaded to
     ``device``); ``srcs``/``dsts``/``t_readys`` are host arrays, and
     ``t_readys`` must stay below :func:`t_ready_limit`.  On CUDA the
-    launch and the pull of ``ints``/``flags`` into pinned host memory go
-    on ``stream`` (a side stream that first waits for the current one),
-    closed by a recorded event: the host overlaps its bookkeeping with
-    the device until :func:`fused_prepare_wait`."""
+    request upload, the launch and the pull of the result words into
+    pinned host memory go on ``stream`` (a side stream that first waits
+    for the current one), closed by a recorded event: the host overlaps
+    its bookkeeping with the device until :func:`fused_prepare_wait`.
+    The kernel writes the (B, n) vectors into the staging buffer too, so
+    the buffer goes back to its pool only when the :class:`FusedPrepare`
+    that can read them is gone (or the token is dropped unwaited)."""
     if isinstance(occ, torch.Tensor):
         dev = occ.device
     else:
@@ -239,46 +260,70 @@ def fused_prepare_start(occ, srcs, dsts, t_readys, *, mesh: Mesh3D,
     if t.size and int(t.max()) >= t_ready_limit(n_slots):
         raise ValueError(f"t_ready {int(t.max())} overflows the int32 slot "
                          f"scoring (limit {t_ready_limit(n_slots)})")
-    req = torch.from_numpy(np.stack([np.asarray(srcs, np.int64),
-                                     np.asarray(dsts, np.int64), t])
-                           .astype(np.int32))
-    B = req.shape[1]
-    if dev.type != "cuda":
-        ints, flags, vecs = fused_prepare_plain(
-            occ, req[0], req[1], req[2], mesh=mesh, n_slots=n_slots)
-        return _Token(ints, flags, vecs, None, B, mesh)
-    side = stream if stream is not None else torch.cuda.current_stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    occ.record_stream(side)
-    with torch.cuda.stream(side):
-        req_d = req.to(dev)
+    B = len(t)
+    if dev.type != "cuda" or B == 0:
+        req = torch.from_numpy(np.stack([np.asarray(srcs, np.int64).reshape(B),
+                                         np.asarray(dsts, np.int64).reshape(B),
+                                         t]).astype(np.int32)).to(dev)
         ints, flags, vecs = fused_prepare_packed(
-            occ, req_d[0], req_d[1], req_d[2], mesh=mesh, n_slots=n_slots)
-        ints_h = torch.empty(ints.shape, dtype=ints.dtype, pin_memory=True)
-        flags_h = torch.empty(flags.shape, dtype=flags.dtype,
-                              pin_memory=True)
-        ints_h.copy_(ints, non_blocking=True)
-        flags_h.copy_(flags, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(side)
-    return _Token(ints_h, flags_h, vecs, event, B, mesh)
+            occ, req[0], req[1], req[2], mesh=mesh, n_slots=n_slots)
+        words = np.zeros(result_words(B, mesh, n_slots), np.int32)
+        w_ints, w_flags = _split_result(words, B, mesh, n_slots)
+        w_ints[:] = ints.cpu().numpy()
+        w_flags[:] = flags.cpu().numpy()
+        return _Token(words, None, vecs, B, mesh, n_slots)
+    occ = check_occ(occ, mesh, n_slots)
+    R = result_words(B, mesh, n_slots)
+    st = take_staging(dev, 3 * B + R + B * mesh.n_nodes)
+    current = torch.cuda.current_stream(dev)
+    side = stream if stream is not None else current
+    if side != current:     # the kernel reads occ after the caller's work
+        st.ready.record(current)
+        side.wait_event(st.ready)
+        occ.record_stream(side)
+    h = st.host_np
+    h[:B] = srcs
+    h[B:2 * B] = dsts
+    h[2 * B:3 * B] = t
+    dev_ptr, host_ptr = st.dev.data_ptr(), st.host.data_ptr()
+    _lib.launch("fused_prepare", dev, occ, st.dev, st.host,
+                dev_ptr + 12 * B, host_ptr + 12 * B, dev_ptr + 4 * (3 * B + R),
+                B, mesh.X, mesh.Y, mesh.Z, n_slots, stream=side)
+    st.event.record(side)
+    token = _Token(None, st, None, B, mesh, n_slots)
+    token.release = weakref.finalize(token, give_staging, st)
+    token.release.atexit = False
+    return token
 
 
 def fused_prepare_wait(token: _Token) -> FusedPrepare:
-    """Wait for a :func:`fused_prepare_start` token and unpack it."""
-    if token.event is not None:
-        token.event.synchronize()
-    # Copies, so the pinned buffers return to the host allocator's cache
-    # now rather than living on in the commit's expiry buckets.
-    ints = token.ints.numpy().copy()
-    flags = token.flags.numpy().astype(bool)
-    L = token.mesh.max_dist + 1
-    return FusedPrepare(
+    """Wait for a :func:`fused_prepare_start` token and unpack it (the
+    same :class:`FusedPrepare` on every call)."""
+    if token.waited is not None:
+        return token.waited
+    B, mesh, n_slots = token.batch, token.mesh, token.n_slots
+    R = result_words(B, mesh, n_slots)
+    st, vecs, words = token.staging, token.vecs, token.words
+    if st is not None:
+        st.event.synchronize()
+        words = st.host_np[3 * B:3 * B + R].copy()
+        vecs = st.dev[3 * B + R:3 * B + R + B * mesh.n_nodes].view(
+            B, mesh.n_nodes)
+    ints, flags = _split_result(words, B, mesh, n_slots)
+    flags = flags.astype(bool)
+    L = mesh.max_dist + 1
+    fp = FusedPrepare(
         starts=ints[:, 0], arr=ints[:, 1],
         denied=flags[:, 0], free=flags[:, 2:],
         hop_n=ints[:, 3:3 + L], hop_p=ints[:, 3 + L:3 + 2 * L],
         hop_s=ints[:, 3 + 2 * L:3 + 3 * L], ok=flags[:, 1],
-        dists=ints[:, 2], _vecs_dev=token.vecs, _batch=token.batch)
+        dists=ints[:, 2], _vecs_dev=vecs, _batch=B)
+    if st is not None:      # the buffers now live as long as fp
+        token.release.detach()
+        weakref.finalize(fp, give_staging, st).atexit = False
+        token.staging = None
+    token.waited = fp
+    return fp
 
 
 def fused_prepare(occ, srcs, dsts, t_readys, *, mesh: Mesh3D, n_slots: int,

@@ -9,10 +9,15 @@ one 32-bit word per node (``csrc/wavefront_search.cu``), not the TPU's
 
 :func:`wavefront_search_packed` launches the kernel for CUDA tensors and
 runs :func:`wavefront_search_plain` for CPU tensors; it never falls back
-from one to the other.
+from one to the other.  :class:`Staging` holds the reused pinned and
+device buffers through which the allocator's calls move a wave's
+requests and results.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from repro_torch.core.bitvec import as_i32_bits, as_i64, full_mask, rotr
@@ -20,22 +25,69 @@ from repro_torch.core.topology import Mesh3D
 
 from .. import _lib
 
-# 16 bytes of shared memory per node (the vector + three occupancy
-# columns) must fit the default 48 KB dynamic shared-memory budget.
+# Shared memory of a fused-prepare CTA is 4 * n * (7 + 2 * 3) bytes (the
+# occupancy table, and for each of its two warps a box vector and two
+# trace-back masks: ``smem_bytes`` in ``csrc/slot_alloc.cuh``): 156 KB at
+# 3072 nodes, within the 227 KB a Hopper CTA may opt into.
 MAX_NODES = 3072
-
-
-def cta_threads(n_nodes: int) -> int:
-    """Threads per CTA for the one-CTA-per-request kernels: one per node
-    up to 256, rounded up to whole warps."""
-    return min(256, -(-n_nodes // 32) * 32)
 
 
 def _check_mesh(mesh: Mesh3D, n_slots: int) -> None:
     full_mask(n_slots)                      # validates 0 < n_slots <= 32
     if mesh.n_nodes > MAX_NODES:
-        raise ValueError(f"mesh has {mesh.n_nodes} nodes; the CTA-per-request "
+        raise ValueError(f"mesh has {mesh.n_nodes} nodes; the search "
                          f"kernels hold at most {MAX_NODES}")
+
+
+def check_occ(occ: torch.Tensor, mesh: Mesh3D, n_slots: int) -> torch.Tensor:
+    """The occupancy table as the kernels read it: (n, 7) int32 bit
+    patterns, contiguous.  Raises on a mesh or shape they do not take."""
+    _check_mesh(mesh, n_slots)
+    if tuple(occ.shape) != (mesh.n_nodes, 7):
+        raise ValueError(f"occ must be ({mesh.n_nodes}, 7), got "
+                         f"{tuple(occ.shape)}")
+    return as_i32_bits(occ).contiguous()
+
+
+@dataclasses.dataclass(eq=False)
+class Staging:
+    """Reused buffers of one call on the card: int32 words in pinned
+    host memory (``host``, and ``host_np``, its numpy view) and on the
+    device, an event that closes the call's work on its stream, and one
+    for a side stream to wait on the caller's.  A call packs its request
+    words into ``host``; the C entry point copies them up, launches, and
+    copies the result down into ``host`` after them.
+    :func:`take_staging` hands a buffer out, :func:`give_staging` takes it
+    back once its event has fired; the owner gives it back only when
+    nothing can read it any more, so a buffer is never rewritten while a
+    copy, a kernel or a reader still uses it."""
+    host: torch.Tensor
+    dev: torch.Tensor
+    event: torch.cuda.Event
+    ready: torch.cuda.Event
+    host_np: np.ndarray
+
+
+_free_staging: dict[torch.device, list[Staging]] = {}
+
+
+def take_staging(device: torch.device, words: int) -> Staging:
+    """A free staging buffer of at least ``words`` int32 words on
+    ``device`` (allocated, at a power of two >= 1024, when none fits)."""
+    free = _free_staging.setdefault(device, [])
+    for i, st in enumerate(free):
+        if st.host.numel() >= words:
+            return free.pop(i)
+    size = max(1024, 1 << (words - 1).bit_length())
+    host = torch.empty(size, dtype=torch.int32, pin_memory=True)
+    return Staging(host, torch.empty(size, dtype=torch.int32, device=device),
+                   torch.cuda.Event(), torch.cuda.Event(), host.numpy())
+
+
+def give_staging(st: Staging) -> None:
+    """Return ``st`` to the free list after its event has fired."""
+    st.event.synchronize()
+    _free_staging.setdefault(st.dev.device, []).append(st)
 
 
 def _geometry(mesh: Mesh3D, srcs: torch.Tensor, dsts: torch.Tensor):
@@ -100,20 +152,14 @@ def wavefront_search_packed(occ: torch.Tensor, srcs: torch.Tensor,
     if not occ.is_cuda:
         return wavefront_search_plain(occ, srcs, dsts, init, mesh=mesh,
                                       n_slots=n_slots)
-    _check_mesh(mesh, n_slots)
+    occ = check_occ(occ, mesh, n_slots)
     dev = occ.device
-    if tuple(occ.shape) != (mesh.n_nodes, 7):
-        raise ValueError(f"occ must be ({mesh.n_nodes}, 7), got "
-                         f"{tuple(occ.shape)}")
-    occ = as_i32_bits(occ)
     B = int(srcs.shape[0])
     out = torch.empty((B, mesh.n_nodes), dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    srcs = srcs.to(dev, torch.int32).contiguous()
-    dsts = dsts.to(dev, torch.int32).contiguous()
-    init = as_i32_bits(init.to(dev)).contiguous()
-    _lib.launch("wavefront_search", dev, occ.contiguous(), srcs, dsts, init,
-                out, B, mesh.X, mesh.Y, mesh.Z, n_slots,
-                cta_threads(mesh.n_nodes))
+    req = torch.stack([srcs.to(dev, torch.int32), dsts.to(dev, torch.int32),
+                       as_i32_bits(init.to(dev))])
+    _lib.launch("wavefront_search", dev, occ, req, None, out, None, B,
+                mesh.X, mesh.Y, mesh.Z, n_slots)
     return out
