@@ -63,7 +63,31 @@ Phases (each prints its lines; any failure exits non-zero):
    µs per call of the allocator's two device calls (a fused wave, a
    search round) at 1 and 64 requests, and each path's kernel time with
    every launch priced at its own batch size's time;
-6. models — ``recurrentgemma-smoke`` and ``mamba2-smoke`` on the card
+6. memsim — the paper's Fig. 4 comparison: the workloads fork,
+   fileCopy20/40/60 (900 requests, seed 1) under the four configs at
+   ``SimParams()`` defaults, and 4 stacks over 1024 banks (fileCopy60
+   and gradAgg40 under nom and nom_light; gradAgg40 under NoM-Light must
+   raise the reference's ValueError), each ``simulate`` on the card and
+   on the CPU with equal ``SimResult``s and energies; the paper's bands
+   (``fig4_bands``, as tests/test_memsim_claims.py asserts them) on the
+   card's results; a line per config (IPC, cycles, CCU fused and host
+   waves, cross-stack copies, wall ms) and the launches of each run (0
+   at these settings: every CCU round holds at most 8 requests, which
+   the allocator keeps on the host);
+7. cluster — ``FabricCluster`` over ``make_topology(4, PAPER_MESH)``
+   (ring, SerDes latency 8, 4-byte links, 1024 banks) on the fused, host
+   and auto backends and with NoM-Light allocators, on one seeded stream
+   of 4096 transfers in 8 flushes at the session clock
+   (``make_cluster_stream``: most copies cross stacks, some reduces
+   build cross-stack trees): results, reports, telemetry and slot tables
+   must agree across the three backends (up to the wave split) and each
+   path with itself on the CPU; every circuit well formed, every
+   cross-stack circuit's segments chained (``check_stacked``); each path
+   run with the launch counts set to 0 just before it and read just
+   after must have launched its own kernels (``PATH_KERNELS``, in each
+   stack's CCU) and no other; µs per allocation per path over rotated
+   rounds;
+8. models — ``recurrentgemma-smoke`` and ``mamba2-smoke`` on the card
    against the CPU plain versions; then ``recurrentgemma-9b`` and
    ``mamba2-130m`` at full width and depth from seeded weights on the
    card: the prefill step (recurrentgemma B=2 x S=4096: 12
@@ -71,7 +95,7 @@ Phases (each prints its lines; any failure exits non-zero):
    ssd_scan launches; nothing else), decode vs forward over 64 tokens,
    ``Engine.generate`` for 4 requests (no launch), times, a profile of
    one prefill and of one decode step, and the peak memory;
-7. the kernel table (one JSON line, launches per path), the card's name
+9. the kernel table (one JSON line, launches per path), the card's name
    and power limit, and the closing ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -557,18 +581,26 @@ def phase_kernels(mesh, device, batches=(1, 64, 1000, 1024), slots=(16, 32),
 # ---------------------------------------------------------------------------
 # Phase 4: the slice end to end
 # ---------------------------------------------------------------------------
-def drive(fabric, chunks):
-    """Schedule every chunk (one flush each, overlapping in time);
-    returns (results, reports, seconds)."""
+FLUSH_CYCLES = 2048
+
+
+def drive(fabric, chunks, cycle_step=FLUSH_CYCLES):
+    """Schedule every chunk, one flush each: the k-th anchored at cycle
+    k * ``cycle_step`` (so flushes overlap in time), or with
+    ``cycle_step=None`` each at the session clock (after the drain of
+    the circuits before it); returns (results, reports, seconds)."""
     import torch
     results, reports = [], []
     t0 = time.perf_counter()
     for k, chunk in enumerate(chunks):
-        res, rep = fabric.schedule(chunk, cycle=k * 2048)
+        res, rep = fabric.schedule(
+            chunk, cycle=None if cycle_step is None else k * cycle_step)
         results += res
         reports.append(rep)
-    if fabric.allocator.device.type == "cuda":
-        torch.cuda.synchronize(fabric.allocator.device)
+    alloc = (fabric.fabrics[0] if hasattr(fabric, "fabrics")
+             else fabric).allocator
+    if alloc.device.type == "cuda":
+        torch.cuda.synchronize(alloc.device)
     return results, reports, time.perf_counter() - t0
 
 
@@ -694,21 +726,24 @@ def phase_slice(mesh, device, chunks, cpu_check=True, batches=None):
     return stats, launches, keys
 
 
-def phase_timing(mesh, device, chunks, keys, rounds=8):
+def phase_timing(mesh, device, chunks, keys, rounds=8, make=make_fabric,
+                 key=circuit_key, label="timing", cycle_step=FLUSH_CYCLES):
     """µs per allocation of every path: ``rounds`` rounds, each running
-    every path on a fresh fabric, with the order rotated by one place per
+    every path on a fresh fabric (``make``: a NomFabric on ``mesh``, or a
+    FabricCluster on a topology), with the order rotated by one place per
     round (each path takes each place equally often when ``rounds`` is a
     multiple of the number of paths).  Returns path -> sorted samples."""
     n = sum(len(c) for c in chunks)
     samples = {k: [] for k in PATHS}
     for r in range(rounds):
         for k in PATHS[r % len(PATHS):] + PATHS[:r % len(PATHS)]:
-            res, _reps, secs = drive(make_fabric(mesh, k, device), chunks)
-            check([circuit_key(x.circuit) for x in res] == keys[k],
+            res, _reps, secs = drive(make(mesh, k, device), chunks,
+                                     cycle_step)
+            check([key(x.circuit) for x in res] == keys[k],
                   f"{k}: circuits differ from the checked run")
             samples[k].append(secs / n * 1e6)
     out = {k: sorted(v) for k, v in samples.items()}
-    print("[timing] us/alloc median (min-max) over "
+    print(f"[{label}] us/alloc median (min-max) over "
           f"{rounds} rotated rounds: " + "; ".join(
               f"{k} {np.median(v):.2f} ({v[0]:.2f}-{v[-1]:.2f})"
               for k, v in out.items()), flush=True)
@@ -836,6 +871,22 @@ def phase_host_calls(mesh, device, batches=(1, WAVE), reps=200, blocks=5):
               f"B={B} fused start+wait {v['fused']:.2f}, search round "
               f"{v['search']:.2f}" for B, v in out.items()), flush=True)
     return out
+
+
+def kernel_share(mesh, device, batches: dict, stats: dict, rows: dict):
+    """The kernels' share of each path's wall time: every launch priced
+    at the event time of its own batch size (``price_launches``)."""
+    price = price_launches(mesh, device, batches, rows)
+    share = {}
+    for kind, per in batches.items():
+        kern_ms = sum(v * price[k] for k, v in per.items())
+        wall_ms = stats[kind]["seconds"] * 1e3
+        share[kind] = (f"{kern_ms:.3f} ms of {wall_ms:.1f} ms "
+                       f"({100 * kern_ms / wall_ms:.2f} %); launches by "
+                       "batch " + ", ".join(
+                           f"{k} B={b}: {v}" for (k, b), v in sorted(
+                               per.items())))
+    return share
 
 
 def price_launches(mesh, device, batches: dict, rows: dict) -> dict:
@@ -1353,7 +1404,445 @@ def phase_model_kernels(device):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: recurrentgemma-9b and mamba2-130m served at full width
+# Phase 6: memsim, the paper's Fig. 4 comparison
+# ---------------------------------------------------------------------------
+# The settings of tests/test_memsim_claims.py: the four Fig. 4 workloads,
+# 900 requests from seed 1, SimParams() defaults (the paper mesh, 16
+# slots) under each of the four configs.
+FIG4_WORKLOADS = ("fork", "fileCopy20", "fileCopy40", "fileCopy60")
+FIG4_REQUESTS, FIG4_SEED = 900, 1
+# The paper's bands as tests/test_memsim_claims.py asserts them: NoM over
+# conventional (paper: 3.8x) and over RowClone (1.75x) as geomeans of the
+# per-workload IPC ratios, open intervals; NoM-Light's gap to NoM per
+# workload (paper: 5-20 %), closed.
+FIG4_VS_CONVENTIONAL = (2.5, 6.5)
+FIG4_VS_ROWCLONE = (1.25, 2.4)
+FIG4_LIGHT_GAP = (0.0, 0.25)
+# The multi-stack runs: 4 stacks (ring, the SerDes defaults) over 1024
+# banks.  NoM-Light cannot route gradAgg40's cross-layer fan-ins
+# (LIGHT_RAISES) and raises, as the reference does.
+STACKED_RUNS = (("fileCopy60", "nom"), ("fileCopy60", "nom_light"),
+                ("gradAgg40", "nom"), ("gradAgg40", "nom_light"))
+STACKED_BANKS = 1024
+LIGHT_RAISES = ("gradAgg40", "nom_light")
+LIGHT_REDUCE_ERROR = "NoM-Light reduce requires same-layer sources"
+
+
+def fig4_bands(results) -> list[str]:
+    """Where ``results[workload][config]`` (SimResults) leave the paper's
+    bands: the ordering NoM > RowClone > conventional per workload, both
+    speedup geomeans and the NoM-Light gap.  Empty when all hold."""
+    def gm(xs):
+        return float(np.exp(np.mean(np.log(xs))))
+    bad = []
+    for wl, r in results.items():
+        if not r["nom"].ipc > r["rowclone"].ipc > r["conventional"].ipc:
+            bad.append(f"{wl}: IPC not nom > rowclone > conventional")
+        gap = 1 - r["nom_light"].ipc / r["nom"].ipc
+        if not FIG4_LIGHT_GAP[0] <= gap <= FIG4_LIGHT_GAP[1]:
+            bad.append(f"{wl}: NoM-Light gap {gap} outside {FIG4_LIGHT_GAP}")
+    for base, (lo, hi) in (("conventional", FIG4_VS_CONVENTIONAL),
+                           ("rowclone", FIG4_VS_ROWCLONE)):
+        g = gm([r["nom"].ipc / r[base].ipc for r in results.values()])
+        if not lo < g < hi:
+            bad.append(f"NoM over {base}: geomean {g} outside ({lo}, {hi})")
+    return bad
+
+
+def simulate_twice(reqs, params, name, device):
+    """``simulate`` on the card, the launch counts set to 0 just before
+    and read just after, then on the CPU (the plain versions): the two
+    ``SimResult``s (``extra`` in full) and energies must be equal.
+    Returns (result, wall ms on the card, launches)."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.memsim import energy_pj, simulate
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = simulate(reqs, params, name=name, device=device)
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_lib.launch_counts)
+    cpu = simulate(reqs, params, name=name, device="cpu")
+    check(dataclasses.asdict(res) == dataclasses.asdict(cpu),
+          f"memsim {name}/{params.config} (stacks {params.stacks}): card "
+          f"and CPU results differ")
+    check(energy_pj(res) == energy_pj(cpu),
+          f"memsim {name}/{params.config}: card and CPU energies differ")
+    return res, ms, launches
+
+
+def memsim_line(label: str, runs: dict) -> str:
+    """One printed line for one config: per workload its IPC, cycles,
+    CCU waves (fused, host), cross-stack copies, wall ms on the card and
+    kernel launches (all kernels, counted from 0 for the run)."""
+    return f"[memsim] {label}: " + "; ".join(
+        f"{wl} ipc {r.ipc:.6g} cycles {r.cycles} fused/host waves "
+        f"{r.extra.get('nom_fused_waves', '-')}/"
+        f"{r.extra.get('nom_host_waves', '-')} cross-stack "
+        f"{r.extra.get('nom_cross_stack', '-')} {ms:.1f} ms launches "
+        f"{sum(launches.values())}"
+        for wl, (r, ms, launches) in runs.items())
+
+
+def phase_memsim(device) -> dict:
+    """The Fig. 4 runs and the 4-stack runs, each on the card and on the
+    CPU (equal results and energies); the paper's bands on the card's
+    results; launches per run.  Returns per-path launches, summed over
+    each config's runs: "memsim-<config>" and "memsim-4stack-<config>"."""
+    from repro_torch.memsim import (CONFIGS, SimParams, WorkloadSpec,
+                                    generate, simulate)
+    launches, fig4 = {}, {}
+    for cfg in CONFIGS:
+        runs = {}
+        for wl in FIG4_WORKLOADS:
+            reqs = generate(WorkloadSpec(wl, n_requests=FIG4_REQUESTS,
+                                         seed=FIG4_SEED))
+            runs[wl] = simulate_twice(reqs, SimParams(config=cfg), wl, device)
+            fig4.setdefault(wl, {})[cfg] = runs[wl][0]
+        launches[f"memsim-{cfg}"] = sum_counts(l for _r, _m, l in
+                                               runs.values())
+        print(memsim_line(cfg, runs), flush=True)
+    bad = fig4_bands(fig4)
+    check(not bad, f"the paper's Fig. 4 bands fail on the card: {bad}")
+    stacked: dict = {}
+    for wl, cfg in STACKED_RUNS:
+        reqs = generate(WorkloadSpec(wl, n_requests=FIG4_REQUESTS,
+                                     seed=FIG4_SEED, n_banks=STACKED_BANKS))
+        params = SimParams(config=cfg, stacks=4)
+        if (wl, cfg) == LIGHT_RAISES:
+            for dev in (device, "cpu"):
+                try:
+                    simulate(reqs, params, name=wl, device=dev)
+                except ValueError as exc:
+                    check(str(exc).startswith(LIGHT_REDUCE_ERROR),
+                          f"{wl}/{cfg}: unexpected error {exc}")
+                else:
+                    raise SmokeFailure(f"{wl}/{cfg} on {dev}: NoM-Light "
+                                       "routed cross-layer fan-ins")
+            print(f"[memsim] 4 stacks {cfg} {wl}: ValueError "
+                  f"({LIGHT_REDUCE_ERROR} ...) on the card and the CPU, "
+                  "as the reference", flush=True)
+            continue
+        stacked.setdefault(cfg, {})[wl] = simulate_twice(reqs, params, wl,
+                                                         device)
+    for cfg, runs in stacked.items():
+        launches[f"memsim-4stack-{cfg}"] = sum_counts(
+            l for _r, _m, l in runs.values())
+        print(memsim_line(f"4 stacks x {STACKED_BANKS // 4} banks {cfg}",
+                          runs), flush=True)
+    gm = {base: float(np.exp(np.mean(np.log(
+        [r["nom"].ipc / r[base].ipc for r in fig4.values()]))))
+        for base in ("conventional", "rowclone")}
+    print(f"[memsim] Fig. 4 on the card == CPU, bands hold: NoM over "
+          f"conventional {gm['conventional']:.4f} (band "
+          f"{FIG4_VS_CONVENTIONAL}), over RowClone {gm['rowclone']:.4f} "
+          f"(band {FIG4_VS_ROWCLONE}), NoM-Light gap "
+          + ", ".join(f"{wl} {1 - r['nom_light'].ipc / r['nom'].ipc:.4f}"
+                      for wl, r in fig4.items())
+          + f" (band {FIG4_LIGHT_GAP})", flush=True)
+    print(f"[launches] memsim per config, counts set to 0 before each run: "
+          f"{json.dumps(launches)}", flush=True)
+    return launches
+
+
+def sum_counts(counts) -> dict:
+    out: dict = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the multi-stack CCU (FabricCluster over four paper meshes)
+# ---------------------------------------------------------------------------
+CLUSTER_STACKS = 4
+
+
+def make_cluster_stream(topo, n: int, seed: int, n_flushes: int):
+    """Phase 4's mix over a StackedTopology, in global bank ids: even
+    chunks plain copies, odd chunks copies with extra-slot bundles,
+    in-place inits (same-stack: the reference rejects cross-stack inits)
+    and fan-in reduces.  Copy endpoints and reduce destinations are
+    uniform over all banks, so about 3/4 of the copies cross stacks.  A
+    reduce's sources lie in one layer of one stack (uniform over the
+    stacks): the destination's layer when that is the destination's
+    stack, else the bridge's layer (0).  So some reduces build
+    cross-stack trees, and NoM-Light, whose fan-ins take same-layer
+    sources only, can route each one (remote partials merge at the
+    bridge)."""
+    from repro_torch.core import TransferRequest, reduce_request
+    rng = np.random.default_rng(seed)
+    mesh, n_banks = topo.stacks[0], topo.n_nodes
+    chunks = []
+    per = n // n_flushes
+    for k in range(n_flushes):
+        chunk = []
+        for _ in range(per):
+            u = rng.random() if k % 2 else 1.0
+            if u < 0.05:
+                dst = int(rng.integers(n_banks))
+                d_stack, d_loc = topo.locate(dst)
+                stack = int(rng.integers(topo.n_stacks))
+                z = mesh.coords(d_loc)[2] if stack == d_stack else 0
+                layer = [topo.global_id(stack, v) for v in range(mesh.n_nodes)
+                         if mesh.coords(v)[2] == z]
+                layer = [g for g in layer if g != dst]
+                srcs = rng.choice(layer, size=int(rng.integers(2, 5)),
+                                  replace=False)
+                chunk.append(reduce_request([int(s) for s in srcs], dst,
+                                            nbytes=int(rng.integers(512,
+                                                                    8192))))
+            elif u < 0.15:
+                v = int(rng.integers(n_banks))
+                chunk.append(TransferRequest(
+                    src=v, dst=v, op="init",
+                    nbytes=int(2 ** rng.uniform(13, 16))))
+            else:
+                s, d = (int(x) for x in rng.integers(n_banks, size=2))
+                while s == d:
+                    d = int(rng.integers(n_banks))
+                extra = (int(rng.integers(1, 4))
+                         if k % 2 and rng.random() < 0.3 else 0)
+                chunk.append(TransferRequest(
+                    src=s, dst=d, nbytes=int(2 ** rng.uniform(9, 16)),
+                    max_extra_slots=extra))
+        chunks.append(chunk)
+    return chunks
+
+
+def make_cluster(topo, kind: str, device):
+    """A FabricCluster on one of the PATHS: the fused, host or auto
+    allocator backend in every stack, or NoM-Light allocators."""
+    from repro_torch.core import FabricCluster, TdmAllocatorLight
+    if kind == "light":
+        return FabricCluster(topo, allocators=[
+            TdmAllocatorLight(m, N_SLOTS, device=str(device))
+            for m in topo.stacks])
+    return FabricCluster(topo, n_slots=N_SLOTS, alloc_backend=kind,
+                         device=str(device))
+
+
+def cluster_key(c):
+    """Every field of a granted Circuit, StackedCircuit or ReduceTree."""
+    return None if c is None else (type(c).__name__, dataclasses.astuple(c))
+
+
+def check_stacked(topo, c, n_slots: int) -> None:
+    """A StackedCircuit's segments chain: near hops from the source to the
+    near bridge in increasing slots, arriving on slot a; one slot per
+    SerDes channel of the stack route, the first (a + 1) % n, each next
+    1 + latency on; far hops from the far bridge injected at
+    (a + T) % n, increasing to (dst, LOCAL)."""
+    from repro_torch.core import PORT_LOCAL
+    (sa, s_loc), (sb, d_loc) = c.src, c.dst
+
+    def chain(hops):
+        for (_n1, _p1, s1), (_n2, _p2, s2) in zip(hops, hops[1:]):
+            check((s1 + 1) % n_slots == s2, f"slots not increasing in {hops}")
+    chain(c.near_hops)
+    chain(c.far_hops)
+    a = c.near_hops[-1][2]
+    check(c.near_hops[0][0] == s_loc
+          and c.near_hops[-1][:2] == (topo.bridge_of(sa), PORT_LOCAL),
+          f"near segment {c.near_hops} is not {s_loc} -> bridge")
+    chans = topo.route_channels(sa, sb)
+    check([ch for ch, _s in c.link_slots] == chans,
+          f"link slots {c.link_slots} off the route {chans}")
+    s = (a + 1) % n_slots
+    for ch, sl in c.link_slots:
+        check(sl == s, f"link slots {c.link_slots} do not chain from {a}")
+        s = (s + 1 + topo.links[ch // 2].latency) % n_slots
+    T = topo.route_cycles(sa, sb)
+    check(c.far_hops[0][:1] == (topo.bridge_of(sb),)
+          and c.far_hops[0][2] == (a + T) % n_slots
+          and c.far_hops[-1][:2] == (d_loc, PORT_LOCAL),
+          f"far segment {c.far_hops} is not bridge@{(a + T) % n_slots} -> "
+          f"{d_loc}")
+    check(c.distance == len(c.near_hops) - 1 + T + len(c.far_hops) - 1,
+          f"cross-stack distance {c.distance}")
+
+
+def check_cluster_result(topo, req, c, n_slots: int) -> None:
+    """Shape of one granted cluster result: a same-stack circuit as
+    check_circuit, in stack-local ids; a StackedCircuit as check_stacked;
+    a ReduceTree's legs as check_stacked, its partials ending at their
+    bridges and its local fan-in at the destination."""
+    import types
+    from repro_torch.core import PORT_LOCAL, ReduceTree, StackedCircuit
+    if isinstance(c, StackedCircuit):
+        check_stacked(topo, c, n_slots)
+    elif isinstance(c, ReduceTree):
+        check(c.dst == topo.locate(req.dst), f"tree {c} off {req.dst}")
+        for leg in c.legs:
+            check_stacked(topo, leg, n_slots)
+            check(leg.dst == c.dst, f"leg {leg} off {c.dst}")
+        for part in c.partials:
+            check(part.hops[-1][1] == PORT_LOCAL
+                  and part.dst in {topo.bridge_of(s) for s, _ in c.srcs},
+                  f"partial {part} does not end at a bridge")
+        if c.local is not None:
+            check(c.local.dst == c.dst[1], f"local fan-in {c.local}")
+    else:
+        loc = types.SimpleNamespace(op=req.op, src=topo.locate(req.src)[1],
+                                    dst=topo.locate(req.dst)[1])
+        check_circuit(loc, c, n_slots)
+
+
+def cluster_state(cl):
+    """Every stack's port expiry table and the SerDes link table."""
+    return ([f.allocator.table._ports.expiry.copy() for f in cl.fabrics]
+            + [cl.segmented.links.expiry.copy()])
+
+
+WAVE_KEYS = ("fused_waves", "host_waves")
+
+
+def telemetry_key(tel: dict) -> dict:
+    """A cluster's telemetry without the fused/host wave split."""
+    out = {k: v for k, v in tel.items() if k not in WAVE_KEYS + ("stacks",)}
+    out["stacks"] = [{k: v for k, v in s.items() if k not in WAVE_KEYS}
+                     for s in tel["stacks"]]
+    return out
+
+
+def phase_cluster(topo, device, chunks, batches=None):
+    """The four paths over a 4-stack cluster, each flush at the session
+    clock (a 4-byte SerDes link holds a 64 KB copy for 16384 windows, so
+    flushes anchored 2048 cycles apart, as in phase 4, would find the
+    links taken and deny most cross-stack requests), each path driven
+    with the launch counts set to 0 just before it and read just after:
+    its own kernels
+    (PATH_KERNELS) must have launched, and no other.  Results, reports,
+    telemetry and slot tables agree across the fused, host and auto
+    backends (up to the wave split), and each path with itself on the
+    CPU; every result is well formed.  With a ``batches`` dict, each
+    path's launches by (kernel, batch) go into ``batches[path]``.
+    Returns (per-path launch counts, keys, per-path stats)."""
+    from repro_torch.kernels import _lib
+    reqs = [r for c in chunks for r in c]
+    runs, launches = {}, {}
+    for kind in PATHS:
+        cl = make_cluster(topo, kind, device)
+        _lib.reset_launch_counts()
+        with (batches_launched(batches.setdefault(kind, {}))
+              if batches is not None else contextlib.nullcontext()):
+            res, reps, secs = drive(cl, chunks, None)
+        launches[f"cluster-{kind}"] = counts = dict(_lib.launch_counts)
+        runs[kind] = (cl, res, reps, secs)
+        own = PATH_KERNELS[kind]
+        check(all(counts[k] > 0 for k in own),
+              f"cluster-{kind}: a kernel of the path never launched: {counts}")
+        check(all(v == 0 for k, v in counts.items() if k not in own),
+              f"cluster-{kind}: launched a kernel outside its path: {counts}")
+    keys = {k: [cluster_key(r.circuit) for r in v[1]]
+            for k, v in runs.items()}
+    for kind in ("host", "auto"):
+        cl, _res, reps, _s = runs[kind]
+        ref = runs["fused"][0]
+        check(keys[kind] == keys["fused"],
+              f"cluster: fused and {kind} backends committed different "
+              "results")
+        check([report_key(a) for a in reps]
+              == [report_key(b) for b in runs["fused"][2]],
+              f"cluster: fused and {kind} schedule reports differ")
+        check(telemetry_key(cl.telemetry()) == telemetry_key(ref.telemetry()),
+              f"cluster: fused and {kind} telemetry differ")
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(cluster_state(cl), cluster_state(ref))),
+              f"cluster: fused and {kind} slot tables differ")
+    for kind, (cl, res, reps, _s) in runs.items():
+        for rq, r in zip(reqs, res):
+            if r.circuit is not None:
+                check_cluster_result(topo, rq, r.circuit, N_SLOTS)
+        for rep in reps:
+            check(rep.fused_waves + rep.host_waves == rep.search_rounds,
+                  f"cluster-{kind}: wave split does not partition search "
+                  "rounds")
+        cpu = make_cluster(topo, kind, "cpu")
+        c_res, c_reps, _s = drive(cpu, chunks, None)
+        check([cluster_key(r.circuit) for r in c_res] == keys[kind],
+              f"cluster-{kind}: CUDA and plain CPU results differ")
+        check([report_key(a, True) for a in c_reps]
+              == [report_key(b, True) for b in reps],
+              f"cluster-{kind}: CUDA and plain CPU reports differ")
+        check(cpu.telemetry() == cl.telemetry()
+              and all(np.array_equal(a, b) for a, b in
+                      zip(cluster_state(cpu), cluster_state(cl))),
+              f"cluster-{kind}: CUDA and plain CPU telemetry or slot tables "
+              "differ")
+    tel = {k: v[0].telemetry() for k, v in runs.items()}
+    stats = {k: {"seconds": v[3]} | {
+        f: tel[k][f] for f in ("scheduled", "fused_waves", "host_waves",
+                               "cross_requests", "cross_committed",
+                               "cross_denied", "cross_rollbacks",
+                               "cross_reduce_trees", "reduce_rollbacks",
+                               "link_windows")}
+        for k, v in runs.items()}
+    print(f"[cluster] {len(reqs)} transfers in {len(chunks)} flushes on "
+          f"{topo.n_stacks} x {topo.stacks[0].X}x{topo.stacks[0].Y}x"
+          f"{topo.stacks[0].Z}/{N_SLOTS} ({topo.link}, SerDes latency "
+          f"{topo.link_latency}, {topo.link_bytes} B links, {topo.n_nodes} "
+          f"banks): fused == host == auto results, reports, telemetry and "
+          f"slot tables, CUDA == plain CPU on every path; "
+          f"{json.dumps(stats)}", flush=True)
+    print(f"[launches] cluster per path, each read right after its run: "
+          f"{json.dumps(launches)}", flush=True)
+    return launches, keys, stats
+
+
+@contextlib.contextmanager
+def seconds_in(out: dict, owners: dict):
+    """While active, add the wall seconds of every call of
+    ``owners[name] = (class, method)`` to ``out[name]`` (a nested call of
+    another listed method counts in both)."""
+    saved = {name: getattr(cls, meth) for name, (cls, meth) in
+             owners.items()}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                out[name] = out.get(name, 0.0) + time.perf_counter() - t0
+        return call
+    for name, (cls, meth) in owners.items():
+        setattr(cls, meth, timed(name, saved[name]))
+    try:
+        yield out
+    finally:
+        for name, (cls, meth) in owners.items():
+            setattr(cls, meth, saved[name])
+
+
+def cluster_where(topo, device, chunks) -> dict:
+    """Where each cluster path's wall time goes, from one more run of it:
+    the per-stack fabrics' same-stack batches (``NomFabric.schedule``:
+    the CCU pipeline and its kernels), the cross-stack negotiation on
+    the host (``SegmentedAllocator.allocate``, the reduce trees'
+    ``FabricCluster._reduce_tree``, whose legs are allocations too) and
+    the rest (the split, reports, clocks)."""
+    from repro_torch.core import FabricCluster, NomFabric, SegmentedAllocator
+    owners = {"same-stack": (NomFabric, "schedule"),
+              "cross-stack": (SegmentedAllocator, "allocate"),
+              "trees": (FabricCluster, "_reduce_tree")}
+    out = {}
+    for kind in PATHS:
+        secs: dict = {}
+        with seconds_in(secs, owners):
+            _res, _reps, wall = drive(make_cluster(topo, kind, device),
+                                      chunks, None)
+        out[kind] = {k: round(v * 1e3, 2) for k, v in secs.items()} | {
+            "wall": round(wall * 1e3, 2)}
+    print(f"[cluster where] ms by part of each path's run (a tree's legs "
+          f"count in cross-stack too): {json.dumps(out)}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: recurrentgemma-9b and mamba2-130m served at full width
 # ---------------------------------------------------------------------------
 # arch -> (prefill batch, prefill length, launches of one prefill step):
 # each layer launches its mixer's kernel once (MIXER_KERNEL).
@@ -1738,7 +2227,7 @@ def main() -> int:
               "from the repository root", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import PAPER_MESH
+    from repro_torch.core import PAPER_MESH, make_topology
     from repro_torch.kernels import _lib
     device = torch.device("cuda", 0)
     print(f"[device] {torch.cuda.get_device_name(0)} | torch "
@@ -1778,19 +2267,24 @@ def main() -> int:
     print("[alloc] us/alloc median " + " ".join(
         f"{k} {np.median(v):.2f}" for k, v in timing.items())
         + f" ({smi})", flush=True)
-    # The kernels' share of each path's wall time: every launch priced at
-    # the event time of its own batch size.
-    price = price_launches(PAPER_MESH, device, batches, rows)
-    share = {}
-    for kind, per in batches.items():
-        kern_ms = sum(v * price[k] for k, v in per.items())
-        share[kind] = (f"{kern_ms:.3f} ms of "
-                       f"{stats[kind]['seconds'] * 1e3:.1f} ms "
-                       f"({100 * kern_ms / (stats[kind]['seconds'] * 1e3):.2f} %)"
-                       f"; launches by batch " + ", ".join(
-                           f"{k} B={b}: {v}" for (k, b), v in sorted(
-                               per.items())))
+    share = kernel_share(PAPER_MESH, device, batches, stats, rows)
     print(f"[where] kernel time {json.dumps(share)}", flush=True)
+
+    launches.update(phase_memsim(device))
+    topo = make_topology(CLUSTER_STACKS, PAPER_MESH)
+    check((topo.link, topo.link_latency, topo.link_bytes, topo.n_nodes)
+          == ("ring", 8, 4, 1024), f"cluster topology {topo}")
+    cchunks = make_cluster_stream(topo, N_TRANSFERS, SEED, N_FLUSHES)
+    cbatches: dict = {}
+    cl_launches, ckeys, cstats = phase_cluster(topo, device, cchunks,
+                                               cbatches)
+    launches.update(cl_launches)
+    phase_timing(topo, device, cchunks, ckeys, rounds=len(PATHS),
+                 make=make_cluster, key=cluster_key, label="cluster timing",
+                 cycle_step=None)
+    cluster_where(topo, device, cchunks)
+    share = kernel_share(PAPER_MESH, device, cbatches, cstats, rows)
+    print(f"[cluster where] kernel time {json.dumps(share)}", flush=True)
 
     for arch in MODELS:
         phase_smoke_model(device, arch)

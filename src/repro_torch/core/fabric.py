@@ -1,5 +1,5 @@
 """`NomFabric`: the stateful session API for all NoM traffic (port of
-``repro.core.fabric``, single stack).
+``repro.core.fabric``).
 
 The paper's premise is that the memory controller sets up TDM circuits
 *centrally*: one authority owns the topology, the slot tables, and the
@@ -28,8 +28,10 @@ long-lived session that owns
   state that the HMC NoC studies identify as what determines throughput
   under concurrency).
 
-Multi-stack clusters (``FabricCluster``, ``ReduceTree``) are not ported
-yet.  See ``docs/fabric.md`` for the session API, which this port keeps.
+:class:`FabricCluster` holds one such fabric per stack of a
+:class:`~repro_torch.core.topology.StackedTopology` and negotiates
+cross-stack circuits and reduce trees between them.  See
+``docs/fabric.md`` for the session API, which this port keeps.
 """
 from __future__ import annotations
 
@@ -38,10 +40,11 @@ import dataclasses
 import numpy as np
 
 from .nom_collectives import _dor_path, plan_transfers
-from .scheduler import (ScheduleReport, _as_copy_requests, _as_transfers,
-                        _tdm_report)
-from .slot_alloc import TdmAllocator
-from .topology import Mesh3D
+from .scheduler import (ScheduleReport, TransferRequest, _as_copy_requests,
+                        _as_transfers, _tdm_report)
+from .slot_alloc import (AllocResult, Circuit, CopyRequest,
+                         SegmentedAllocator, TdmAllocator)
+from .topology import Mesh3D, StackedTopology
 
 
 class FabricOverflow(RuntimeError):
@@ -685,6 +688,471 @@ class NomFabric:
             self._calm_flushes = 0
 
 
-__all__ = ["AdmissionQueue", "FabricOverflow", "NomFabric", "PolicyContext",
-           "get_policy", "register_policy", "registered_policies",
-           "unregister_policy"]
+
+# ---------------------------------------------------------------------------
+# Multi-stack: one CCU authority per stack + cross-stack negotiation
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class ReduceTree:
+    """A committed cross-stack compute-class reduce.
+
+    Three kinds of reserved components stream as one logical operation:
+    ``partials`` — per-remote-stack fan-in :class:`~repro_torch.core.slot_alloc.
+    Circuit`\\ s merging that stack's operands at its bridge bank;
+    ``legs`` — one :class:`~repro_torch.core.slot_alloc.StackedCircuit` SerDes
+    delivery per remote stack, bridge to destination, anchored at the
+    partial's drain (store-and-forward at the bridge's logic-die buffer);
+    ``local`` — the destination stack's own fan-in, when it holds
+    operands.  Remote partials merge at the destination without extra
+    ALU dwell (the SerDes inter-arrival gap already exceeds the merge
+    latency — a documented simplification vs the same-stack dwell
+    model).  Cycles span the earliest component injection to the last
+    component's final beat."""
+    dst: tuple[int, int]      # (stack, local node)
+    srcs: tuple               # (stack, node) operand endpoints, source order
+    start_cycle: int
+    arrival_cycle: int        # first beat of the last-arriving component
+    end_cycle: int            # last beat landed (reservations drained)
+    n_windows: int            # window span of the whole tree
+    distance: int             # arrival_cycle - start_cycle
+    partials: list            # remote-stack bridge fan-in Circuits
+    legs: list                # StackedCircuits bridge -> destination
+    local: object | None = None   # destination-stack fan-in Circuit
+    slots_per_window: int = 1
+    _n_slots_hint: int = 16
+
+    @property
+    def cross_stack(self) -> bool:
+        return True
+
+    @property
+    def hops(self) -> list[tuple[int, int, int]]:
+        """Mesh hops of every component (node ids are stack-local);
+        SerDes hops are in :attr:`link_slots`."""
+        out = []
+        for c in (*self.partials, *self.legs,
+                  *((self.local,) if self.local is not None else ())):
+            out.extend(c.hops)
+        return out
+
+    @property
+    def link_slots(self) -> list[tuple[int, int]]:
+        """(channel, slot) SerDes reservations across all legs."""
+        return [ls for leg in self.legs for ls in leg.link_slots]
+
+
+@dataclasses.dataclass
+class FabricCluster:
+    """Multi-authority NoM over a :class:`StackedTopology`.
+
+    One :class:`NomFabric` per stack owns that stack's slot tables,
+    clock, and policy state — *same-stack traffic is delegated wholesale
+    to its stack's fabric* and never takes the cluster's cross-stack
+    path.  Cross-stack requests are negotiated between the per-stack CCUs
+    by a :class:`~repro_torch.core.slot_alloc.SegmentedAllocator`: the near
+    authority reserves its mesh segment plus the SerDes channel slots
+    (phase 1), the far authority commits its segment against the pinned
+    injection slot (phase 2), and a far-side conflict rolls the near
+    reservation back with no slot-table state leaked.
+
+    Requests address banks either as flat global ids (``src``/``dst``
+    ints, see :meth:`StackedTopology.global_id`), as ``(stack, node)``
+    tuples, or via :class:`TransferRequest`'s ``src_stack``/``dst_stack``
+    fields with stack-local node ids.
+
+    With ``n_stacks == 1`` every batch is delegated to the single stack
+    fabric with identical arguments — plans, results, and reports are
+    bit-identical to holding that :class:`NomFabric` directly.
+
+    ``device`` is passed to every per-stack :class:`NomFabric` the
+    cluster builds (``"cuda"`` by default: each stack's search and
+    prepare kernels run on the card; ``"cpu"`` runs their plain
+    versions).  Ignored with ``allocators=``, which keep their own.
+    """
+
+    topology: StackedTopology
+    n_slots: int = 16
+    policy: str = "arrival"
+    queue_depth: int = 8
+    overflow: str = "block"
+    allocators: list | None = None   # pre-built per-stack allocators
+    alloc_backend: str = "auto"      # per-stack allocator prepare backend
+    device: str = "cuda"             # per-stack allocators' device
+
+    def __post_init__(self):
+        if self.allocators is not None:
+            if len(self.allocators) != self.topology.n_stacks:
+                raise ValueError(f"{len(self.allocators)} allocators for "
+                                 f"{self.topology.n_stacks} stacks")
+            self.n_slots = self.allocators[0].n_slots
+            self.fabrics = [NomFabric(allocator=a, policy=self.policy,
+                                      queue_depth=self.queue_depth,
+                                      overflow=self.overflow)
+                            for a in self.allocators]
+        else:
+            self.fabrics = [NomFabric(mesh=m, n_slots=self.n_slots,
+                                      policy=self.policy,
+                                      queue_depth=self.queue_depth,
+                                      overflow=self.overflow,
+                                      alloc_backend=self.alloc_backend,
+                                      device=self.device)
+                            for m in self.topology.stacks]
+        self.segmented = SegmentedAllocator(
+            self.topology, [f.allocator for f in self.fabrics], self.n_slots)
+        self.backend = "tdm"
+        self.queue = AdmissionQueue(self.queue_depth, self.overflow)
+        self.clock = 0
+        self.last_cycle = 0
+        self.report: ScheduleReport | None = None
+        self.n_flushes = 0
+        self.cross_requests = 0
+        self.cross_committed = 0
+        self.cross_reduce_trees = 0    # committed cross-stack reduce trees
+        self.reduce_rollbacks = 0      # trees aborted (state restored)
+
+    # -- introspection -------------------------------------------------------
+    @property
+    def effective_policy(self) -> str:
+        return self.policy
+
+    @property
+    def pending(self) -> int:
+        return len(self.queue.items)
+
+    def fabric_of(self, stack: int) -> NomFabric:
+        """The per-stack CCU authority (its slot tables, clock, queue)."""
+        if not 0 <= stack < self.topology.n_stacks:
+            raise ValueError(f"stack {stack} out of range "
+                             f"[0, {self.topology.n_stacks})")
+        return self.fabrics[stack]
+
+    # -- two-level address normalization -------------------------------------
+    def _endpoint(self, v, stack: int | None) -> tuple[int, int]:
+        if stack is not None:
+            self.topology.global_id(int(stack), int(v))  # validates ranges
+            return int(stack), int(v)
+        if isinstance(v, tuple):
+            if len(v) != 2:
+                raise ValueError(f"stacked endpoint must be (stack, node), "
+                                 f"got {v!r}")
+            self.topology.global_id(int(v[0]), int(v[1]))
+            return int(v[0]), int(v[1])
+        return self.topology.locate(int(v))
+
+    def _split(self, transfers):
+        """Partition a batch three ways: same-stack requests (localized,
+        grouped per stack), cross-stack copies (kept with their
+        endpoints), and cross-stack reduces (kept with every operand
+        endpoint — they become reduce trees)."""
+        groups: dict[int, list] = {}
+        cross: list = []
+        cross_red: list = []
+        for pos, t in enumerate(transfers):
+            if not isinstance(t, (TransferRequest, CopyRequest)):
+                t = CopyRequest(*t)
+            is_tr = isinstance(t, TransferRequest)
+            if _is_reduce(t):
+                srcs = _reduce_srcs(t)
+                if not srcs:
+                    raise ValueError(f"reduce requires fan-in sources "
+                                     f"(srcs), got {t!r}")
+                s_stack = t.src_stack if is_tr else None
+                eps = [self._endpoint(s, s_stack) for s in srcs]
+                de = self._endpoint(t.dst, t.dst_stack if is_tr else None)
+                if len(set(eps)) != len(eps):
+                    raise ValueError(f"reduce sources must be distinct, "
+                                     f"got {t!r}")
+                if de in eps:
+                    raise ValueError(f"reduce destination {de} is already "
+                                     f"a source in {t!r}")
+                if all(st == de[0] for st, _n in eps):
+                    locs = tuple(n for _st, n in eps)
+                    if is_tr:
+                        local = dataclasses.replace(
+                            t, src=locs[0], dst=de[1], srcs=locs,
+                            src_stack=None, dst_stack=None)
+                    else:
+                        local = dataclasses.replace(t, src=locs[0],
+                                                    dst=de[1], srcs=locs)
+                    groups.setdefault(de[0], []).append((pos, local))
+                else:
+                    cross_red.append((pos, t, eps, de))
+                continue
+            se = self._endpoint(t.src, t.src_stack if is_tr else None)
+            de = self._endpoint(t.dst, t.dst_stack if is_tr else None)
+            if _is_init(t) and se != de:
+                raise ValueError(f"init requires src == dst, got {t!r}")
+            if se[0] == de[0]:
+                if is_tr:
+                    local = dataclasses.replace(t, src=se[1], dst=de[1],
+                                                src_stack=None,
+                                                dst_stack=None)
+                else:
+                    local = dataclasses.replace(t, src=se[1], dst=de[1])
+                groups.setdefault(se[0], []).append((pos, local))
+            else:
+                cross.append((pos, t, se, de))
+        return groups, cross, cross_red
+
+    # -- the synchronous batch path ------------------------------------------
+    def schedule(self, transfers, cycle: int | None = None,
+                 policy: str | None = None):
+        """Schedule a batch across the cluster.
+
+        Same-stack requests go to their stack's :class:`NomFabric` (one
+        delegated batch per stack, identical ``cycle``/``policy``
+        semantics); cross-stack requests are then negotiated one at a
+        time through the two-phase :class:`SegmentedAllocator` — an
+        uncommittable request is denied (``circuit=None``), exactly like
+        a saturated single-stack mesh.  Returns ``(results, report)``
+        with results in request order; the merged report counts the
+        cross-stack share in ``n_cross_stack``.
+        """
+        transfers = list(transfers)
+        groups, cross, cross_red = self._split(transfers)
+        results: list = [None] * len(transfers)
+        reports = []
+        for stack in sorted(groups):
+            positions = [p for p, _r in groups[stack]]
+            reqs = [r for _p, r in groups[stack]]
+            res, rep = self.fabrics[stack].schedule(reqs, cycle=cycle,
+                                                    policy=policy)
+            for p, r in zip(positions, res):
+                results[p] = r
+            reports.append(rep)
+        circuits, stalls = [], 0
+        for pos, t, se, de in cross:
+            self.cross_requests += 1
+            anchor = (cycle if cycle is not None
+                      else max(self.fabrics[se[0]].clock,
+                               self.fabrics[de[0]].clock))
+            rq_cycle = getattr(t, "cycle", None)
+            if rq_cycle is not None:
+                anchor = max(anchor, rq_cycle)
+            circ = self.segmented.allocate(se, de, max(1, t.nbytes), anchor)
+            results[pos] = AllocResult(circuit=circ, searched_cycle=anchor)
+            if circ is None:
+                continue
+            self.cross_committed += 1
+            circuits.append(circ)
+            stalls += max(0, circ.start_cycle - (anchor + 3))
+            if cycle is None:
+                nxt = ((circ.end_cycle // self.n_slots) + 1) * self.n_slots
+                for s in (se[0], de[0]):
+                    fab = self.fabrics[s]
+                    fab.clock = max(fab.clock, nxt)
+        for pos, t, eps, de in cross_red:
+            self.cross_requests += 1
+            involved = sorted({de[0], *(s for s, _n in eps)})
+            anchor = (cycle if cycle is not None
+                      else max(self.fabrics[s].clock for s in involved))
+            rq_cycle = getattr(t, "cycle", None)
+            if rq_cycle is not None:
+                anchor = max(anchor, rq_cycle)
+            tree = self._reduce_tree(t, eps, de, anchor)
+            results[pos] = AllocResult(circuit=tree, searched_cycle=anchor)
+            if tree is None:
+                continue
+            self.cross_committed += 1
+            self.cross_reduce_trees += 1
+            circuits.append(tree)
+            stalls += max(0, tree.start_cycle - (anchor + 3))
+            if cycle is None:
+                nxt = ((tree.end_cycle // self.n_slots) + 1) * self.n_slots
+                for s in involved:
+                    fab = self.fabrics[s]
+                    fab.clock = max(fab.clock, nxt)
+        if cross or cross_red:
+            reports.append(self._cross_report(
+                len(cross) + len(cross_red), circuits, stalls,
+                n_reduce=len(cross_red)))
+        if not reports:
+            reports = [ScheduleReport(backend="tdm", n_requests=0,
+                                      n_scheduled=0, n_windows=0,
+                                      max_inflight=0, avg_inflight=0.0)]
+        report = reports[0]
+        for rep in reports[1:]:
+            report = report.merge(rep)
+        if groups:
+            self.last_cycle = (cycle if cycle is not None else
+                               min(self.fabrics[s].last_cycle
+                                   for s in groups))
+        elif cross or cross_red:
+            self.last_cycle = min(r.searched_cycle
+                                  for r in results if r is not None)
+        self.clock = max([self.clock] + [f.clock for f in self.fabrics])
+        self.n_flushes += 1
+        self.report = (report if self.report is None
+                       else self.report.merge(report))
+        return results, report
+
+    def _cross_report(self, n_cross: int, circuits, stalls,
+                      n_reduce: int = 0) -> ScheduleReport:
+        n = self.n_slots
+        starts = [c.start_cycle // n for c in circuits]
+        w0 = min(starts, default=0)
+        span = max((s - w0 + c.n_windows for s, c in zip(starts, circuits)),
+                   default=0)
+        active = np.zeros(span, np.int64)
+        for s, c in zip(starts, circuits):
+            active[s - w0:s - w0 + c.n_windows] += 1
+        busy = active[active > 0]
+        return ScheduleReport(
+            backend="tdm", n_requests=n_cross, n_scheduled=len(circuits),
+            n_windows=int(span),
+            max_inflight=int(busy.max()) if busy.size else 0,
+            avg_inflight=float(busy.mean()) if busy.size else 0.0,
+            stall_cycles=stalls, n_cross_stack=n_cross, n_reduce=n_reduce)
+
+    # -- cross-stack reduce trees --------------------------------------------
+    def _tree_snapshot(self):
+        """Every expiry table a reduce tree may touch (per-stack ports +
+        SerDes links), copied — the all-or-nothing restore point."""
+        tables = [f.allocator.table._ports for f in self.fabrics]
+        tables.append(self.segmented.links)
+        return ([(pe, pe.expiry.copy()) for pe in tables],
+                self.segmented.link_windows)
+
+    def _tree_restore(self, snap) -> None:
+        saved, link_windows = snap
+        for pe, exp in saved:
+            if not np.array_equal(pe.expiry, exp):
+                pe.expiry[...] = exp
+                pe._recompute(pe.window)
+        self.segmented.link_windows = link_windows
+
+    def _commit_local_reduce(self, stack: int, srcs, dst: int, nbytes: int,
+                             cycle: int):
+        """Reserve one same-stack fan-in (a reduce-tree component)
+        directly against the stack's slot table.  Returns the Circuit or
+        None when infeasible; the caller owns tree-level rollback."""
+        alloc = self.fabrics[stack].allocator
+        n = alloc.n_slots
+        t_ready = cycle + 3
+        window = t_ready // n
+        occ = alloc.table._ports.masks_at(window)
+        st = alloc._prepare_reduce(
+            CopyRequest(src=srcs[0], dst=dst, nbytes=max(1, nbytes),
+                        op="reduce", srcs=tuple(srcs)),
+            t_ready, occ, window)
+        if st.denied:
+            return None
+        alloc.table._ports.reserve_arrays(st.idx, st.w_res + st.n_win)
+        return Circuit(src=st.src, dst=st.dst, start_cycle=st.start_cycle,
+                       n_windows=st.n_win, hops=st.hops,
+                       distance=st.distance, _n_slots_hint=n, srcs=st.srcs)
+
+    def _reduce_tree(self, t, eps, de, anchor: int) -> ReduceTree | None:
+        """Commit one cross-stack reduce as a tree, all-or-nothing.
+
+        Per remote stack: fan-in partial reduction at the bridge bank
+        (bridge-resident operands merge for free), then one SerDes leg
+        delivering the partial to the destination, anchored at the
+        partial's drain (store-and-forward in the bridge's logic-die
+        buffer).  Destination-stack operands fan in locally at the
+        anchor.  Any infeasible component restores every expiry table
+        byte-identically — the :class:`SegmentedAllocator` two-phase
+        discipline widened to the whole tree."""
+        ds, d_loc = de
+        by_stack: dict[int, list[int]] = {}
+        for st_, node in eps:
+            by_stack.setdefault(st_, []).append(node)
+        local_srcs = by_stack.pop(ds, [])
+        snap = self._tree_snapshot()
+        partials, legs = [], []
+        ok = True
+        for st_ in sorted(by_stack):
+            bridge = self.topology.bridge_of(st_)
+            fan = [nd for nd in by_stack[st_] if nd != bridge]
+            leg_anchor = anchor
+            if fan:
+                part = self._commit_local_reduce(st_, fan, bridge,
+                                                 t.nbytes, anchor)
+                if part is None:
+                    ok = False
+                    break
+                partials.append(part)
+                leg_anchor = part.end_cycle
+            leg = self.segmented.allocate((st_, bridge), (ds, d_loc),
+                                          max(1, t.nbytes), leg_anchor)
+            if leg is None:
+                ok = False
+                break
+            legs.append(leg)
+        local = None
+        if ok and local_srcs:
+            local = self._commit_local_reduce(ds, local_srcs, d_loc,
+                                              t.nbytes, anchor)
+            ok = local is not None
+        if not ok:
+            self._tree_restore(snap)
+            self.reduce_rollbacks += 1
+            return None
+        comps = partials + legs + ([local] if local is not None else [])
+        start = min(c.start_cycle for c in comps)
+        arrival = max(c.arrival_cycle for c in comps)
+        end = max(c.end_cycle for c in comps)
+        return ReduceTree(dst=de, srcs=tuple(eps), start_cycle=start,
+                          arrival_cycle=arrival, end_cycle=end,
+                          n_windows=(end - start) // self.n_slots + 1,
+                          distance=arrival - start, partials=partials,
+                          legs=legs, local=local,
+                          _n_slots_hint=self.n_slots)
+
+    # -- the admission-queue path --------------------------------------------
+    def submit(self, request, at: int | None = None) -> bool:
+        """Admit one request into the cluster-level bounded queue — same
+        overflow contract as :meth:`NomFabric.submit`."""
+        return NomFabric.submit(self, request, at)
+
+    def flush(self, cycle: int | None = None):
+        """Drain the cluster queue through one batched :meth:`schedule`
+        call — same pickup-pipeline contract as :meth:`NomFabric.flush`."""
+        return NomFabric.flush(self, cycle)
+
+    # -- telemetry -----------------------------------------------------------
+    def telemetry(self) -> dict:
+        """Cluster-wide stats: the merged scheduling counters, the
+        cross-stack protocol counters (``cross_requests`` /
+        ``cross_committed`` / ``cross_denied`` / ``cross_rollbacks``,
+        the reduce-tree counters ``cross_reduce_trees`` /
+        ``reduce_rollbacks``, SerDes ``link_windows``), and each
+        stack's own fabric telemetry under ``"stacks"``."""
+        agg = self.report
+        return {
+            "backend": self.backend,
+            "n_stacks": self.topology.n_stacks,
+            "flushes": self.n_flushes,
+            "requests": 0 if agg is None else agg.n_requests,
+            "scheduled": 0 if agg is None else agg.n_scheduled,
+            "init_requests": 0 if agg is None else agg.n_init,
+            "reduce_requests": 0 if agg is None else agg.n_reduce,
+            "max_inflight": 0 if agg is None else agg.max_inflight,
+            "avg_inflight": 0.0 if agg is None else agg.avg_inflight,
+            "stall_cycles": 0 if agg is None else agg.stall_cycles,
+            "fused_waves": 0 if agg is None else agg.fused_waves,
+            "host_waves": 0 if agg is None else agg.host_waves,
+            "cross_requests": self.cross_requests,
+            "cross_committed": self.cross_committed,
+            "cross_denied": self.segmented.denied,
+            "cross_rollbacks": self.segmented.rollbacks,
+            "cross_reduce_trees": self.cross_reduce_trees,
+            "reduce_rollbacks": self.reduce_rollbacks,
+            "link_windows": self.segmented.link_windows,
+            "policy": self.effective_policy,
+            "queue_depth": self.queue.depth,
+            "pending": self.pending,
+            "shed": self.queue.n_shed,
+            "full_stalls": self.queue.full_stalls,
+            "queue_stall_cycles": self.queue.stall_cycles,
+            "queue_admitted": self.queue.n_admitted,
+            "queue_wait_cycles": self.queue.wait_total,
+            "queue_wait_p50": self.queue.wait_quantile(0.5),
+            "queue_wait_p99": self.queue.wait_quantile(0.99),
+            "stacks": [f.telemetry() for f in self.fabrics],
+        }
+
+
+__all__ = ["AdmissionQueue", "FabricCluster", "FabricOverflow", "NomFabric",
+           "PolicyContext", "ReduceTree", "get_policy", "register_policy",
+           "registered_policies", "unregister_policy"]

@@ -1,6 +1,8 @@
-"""The CCU as a host-side bulk-transfer planner (port of the host half of
+"""The CCU as a host-side planner (port of the host half of
 ``repro.core.nom_collectives``).
 
+:func:`nom_reduce` and :func:`nom_allreduce_banks` plan memory-side
+fan-in and all-reduce over a bank-level fabric session.
 :class:`TransferPlan` routes arbitrary (src, dst) transfer sets DOR over
 a device mesh/torus and packs them into link-disjoint rounds via greedy
 earliest-slot allocation, the same increasing-slot invariant as
@@ -14,6 +16,46 @@ import dataclasses
 from collections import defaultdict
 
 import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# Bank-level planners over a fabric session (memory-side reduce)
+# ---------------------------------------------------------------------------
+def nom_reduce(fabric, srcs, dst: int, nbytes: int = 1, cycle=None):
+    """One memory-side fan-in on a fabric session: ``nbytes`` operands
+    from each bank in ``srcs`` merged at ``dst`` over a compute-class
+    circuit.  The planner spelling every subsystem should use.
+    Returns ``(AllocResult, ScheduleReport)``."""
+    from .scheduler import reduce_request
+    (res,), report = fabric.schedule(
+        [reduce_request(srcs, dst, nbytes=nbytes)], cycle=cycle)
+    return res, report
+
+
+def nom_allreduce_banks(fabric, banks, nbytes: int, cycle=None):
+    """Memory-side all-reduce of an ``nbytes`` vector replicated across
+    ``banks``: a reduce-scatter batch (each bank is the fan-in
+    destination of its own shard) followed by an all-gather batch (each
+    bank streams its reduced shard to every peer).  Both batches go
+    through ``fabric.schedule``, so they pack under the session policy
+    and land in its telemetry.  Returns ``(results, report)`` with the
+    scatter results first and the two batch reports merged."""
+    from .scheduler import TransferRequest, reduce_request
+    banks = [int(b) for b in banks]
+    if len(set(banks)) != len(banks):
+        raise ValueError(f"all-reduce banks must be distinct: {banks}")
+    if len(banks) < 2:
+        raise ValueError("all-reduce needs at least two banks")
+    shard = -(-nbytes // len(banks))
+    scatter = [reduce_request([s for s in banks if s != d], d, nbytes=shard,
+                              tag=("reduce_scatter", d))
+               for d in banks]
+    res1, rep1 = fabric.schedule(scatter, cycle=cycle)
+    gather = [TransferRequest(src=d, dst=o, nbytes=shard,
+                              tag=("allgather", d, o))
+              for d in banks for o in banks if o != d]
+    res2, rep2 = fabric.schedule(gather)
+    return res1 + res2, rep1.merge(rep2)
 
 
 @dataclasses.dataclass(frozen=True)

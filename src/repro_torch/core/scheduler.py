@@ -51,9 +51,13 @@ class TransferRequest:
         (RowClone-FPM); on the rounds backend it is a local no-route
         transfer.  Either way it shares the batch's admission order and
         shows up in :attr:`ScheduleReport.n_init`.
-      src_stack, dst_stack: two-level addressing for a multi-stack
-        cluster (not ported yet); single-stack fabrics ignore these
-        fields.
+      src_stack, dst_stack: two-level addressing for a
+        :class:`~repro_torch.core.fabric.FabricCluster` — the stack each
+        endpoint's (then stack-local) node id lives in.  ``None`` (the
+        default) means ``src``/``dst`` are flat ids: plain node ids on a
+        single-stack fabric, global ids (see
+        :meth:`~repro_torch.core.topology.StackedTopology.global_id`) on a
+        cluster.  Single-stack fabrics ignore these fields.
       srcs: compute-class fan-in only (``op="reduce"``): the N source
         banks whose operands are combined at ``dst``.  ``src`` mirrors
         ``srcs[0]`` for backend compatibility.  Build these through
@@ -75,8 +79,9 @@ def reduce_request(srcs, dst, nbytes: int = 1, **kw) -> TransferRequest:
     """Build a compute-class fan-in request: combine one ``nbytes``
     operand from each bank in ``srcs`` at ``dst`` (``op="reduce"``).
 
-    This is the one sanctioned constructor for multi-source requests.
-    Sources must be pairwise
+    This is the one sanctioned constructor for multi-source requests —
+    the planners ``nom_reduce``/``nom_allreduce_banks`` come through
+    here.  Sources must be pairwise
     distinct and must not include the destination: the destination bank
     holds the accumulator, it contributes its resident operand for free.
     """
@@ -131,9 +136,10 @@ class ScheduleReport:
         eviction/initialization share of the traffic.
       n_reduce: compute-class requests (``op="reduce"``, fan-in
         circuits) in this batch — the in-memory combine share.
-      n_cross_stack: requests whose endpoints live in different stacks
-        (multi-stack clusters, not ported yet); 0 on every single-stack
-        fabric.
+      n_cross_stack: requests whose endpoints live in different stacks of
+        a :class:`~repro_torch.core.topology.StackedTopology` (scheduled as
+        two-phase segmented circuits by a ``FabricCluster``); 0 on every
+        single-stack fabric.
       fused_waves: prepare rounds served by the fused prepare kernel
         (tdm backend) — the allocator's per-wave backend telemetry.
       host_waves: prepare rounds served by the split host pipeline (tiny

@@ -1,5 +1,5 @@
 """TDM slot allocation — the paper's core algorithm (Section 2.1); port
-of ``repro.core.slot_alloc`` (single stack).
+of ``repro.core.slot_alloc``.
 
 The CCU services copy requests by finding a *circuit*: a sequence of
 increasingly-numbered TDM slots along a shortest path, so data advances one
@@ -40,7 +40,8 @@ import torch
 from repro_torch.device import resolve_device
 
 from .bitvec import bit_is_free, full_mask, packed_tensor, rotr_np
-from .topology import Mesh3D, N_PORTS, PORT_LOCAL, port_for
+from .topology import (Mesh3D, N_PORTS, PORT_LOCAL, StackedTopology,
+                       port_for)
 
 
 # ---------------------------------------------------------------------------
@@ -1793,3 +1794,195 @@ class TdmAllocatorLight(TdmAllocator):
                 hops=hops, idx=idx, dup=dup, uses_bus=True,
                 bus_column=picked[0][1][0], bus_slots=bus_slots)
         return out
+
+
+# ---------------------------------------------------------------------------
+# Cross-stack circuits (two-phase segmented allocation)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class StackedCircuit:
+    """A committed cross-stack circuit through a :class:`StackedTopology`.
+
+    Three reserved segments stream in lock step: the *near* segment
+    (``src`` to the near stack's bridge bank, ejecting into the SerDes TX
+    buffer through the bridge's LOCAL port), one TDM slot on every
+    directed SerDes channel along the stack route, and the *far* segment
+    (far bridge to ``dst``).  Intermediate stacks forward bridge-to-bridge
+    on the logic die — their meshes are never traversed.  All segments
+    hold their slots for the same ``n_windows`` (the stream runs at the
+    bottleneck link's byte rate end to end).
+    """
+
+    src: tuple[int, int]      # (stack, local node)
+    dst: tuple[int, int]
+    start_cycle: int          # absolute cycle of source injection
+    n_windows: int
+    near_hops: list[tuple[int, int, int]]   # (node, port, slot), near stack
+    far_hops: list[tuple[int, int, int]]    # (node, port, slot), far stack
+    link_slots: list[tuple[int, int]]       # (channel, slot) per SerDes hop
+    distance: int             # beat latency src -> dst, SerDes legs included
+    slots_per_window: int = 1
+    uses_bus: bool = False
+    bus_column: int = -1
+    _n_slots_hint: int = 16
+
+    @property
+    def cross_stack(self) -> bool:
+        return True
+
+    @property
+    def hops(self) -> list[tuple[int, int, int]]:
+        """Mesh hops of both segments (near then far) — SerDes hops are in
+        ``link_slots``; node ids are stack-local."""
+        return list(self.near_hops) + list(self.far_hops)
+
+    @property
+    def arrival_cycle(self) -> int:
+        return self.start_cycle + self.distance
+
+    @property
+    def end_cycle(self) -> int:
+        return self.arrival_cycle + (self.n_windows - 1) * self._n_slots_hint
+
+
+class SegmentedAllocator:
+    """Two-phase cross-stack circuit allocation over per-stack allocators.
+
+    Phase 1 (the near stack's authority): wavefront-search ``src`` to the
+    near bridge, walk candidate bridge-arrival slots in earliest-start
+    order, and for the first whose SerDes channel chain is free reserve
+    the near hops *and* the channel slots.  Phase 2 (the far authority):
+    search far bridge -> ``dst`` with the injection slot pinned to the one
+    the link chain delivers; a conflict on the far side *rolls back* the
+    near-side reservation (restoring the exact prior expiries) and the
+    next candidate slot is tried.  Either the whole segmented circuit
+    commits or no slot-table state changes at all.
+
+    Slot arithmetic: a beat arriving at the near bridge on slot ``a``
+    enters the first channel on ``(a + 1) % n``; each SerDes hop advances
+    the slot by ``1 + latency``; the far injection slot is therefore
+    ``(a + T) % n`` with ``T = sum(1 + latency_k)``.
+    """
+
+    def __init__(self, topology: StackedTopology, allocators: list,
+                 n_slots: int = 16):
+        if len(allocators) != topology.n_stacks:
+            raise ValueError(f"{len(allocators)} allocators for "
+                             f"{topology.n_stacks} stacks")
+        self.topology = topology
+        self.allocators = list(allocators)
+        self.n_slots = n_slots
+        # One TDM slot resource per directed SerDes channel, same expiry
+        # discipline as router ports.
+        self.links = _PackedExpiry((max(1, topology.n_channels),), n_slots)
+        self.rollbacks = 0        # phase-2 aborts (near side rolled back)
+        self.denied = 0           # requests with no committable candidate
+        self.link_windows = 0     # SerDes (channel, slot)-windows reserved
+
+    def bottleneck_bytes(self, src_stack: int, dst_stack: int) -> int:
+        """Bytes one circuit moves per TDM window src -> dst: the minimum
+        of the two mesh link widths and every SerDes link on the route."""
+        widths = [self.allocators[src_stack].link_bytes,
+                  self.allocators[dst_stack].link_bytes]
+        widths += [self.topology.links[c // 2].link_bytes
+                   for c in self.topology.route_channels(src_stack, dst_stack)]
+        return min(widths)
+
+    def allocate(self, src: tuple[int, int], dst: tuple[int, int],
+                 nbytes: int, cycle: int) -> StackedCircuit | None:
+        """Reserve the earliest cross-stack circuit, or None (no leaked
+        state) when every candidate slot fails phase 2."""
+        topo, n = self.topology, self.n_slots
+        (sa, s_loc), (sb, d_loc) = src, dst
+        if sa == sb:
+            raise ValueError("SegmentedAllocator is for cross-stack traffic; "
+                             "same-stack requests go to the stack's own CCU")
+        near, far = self.allocators[sa], self.allocators[sb]
+        mesh_a, mesh_b = topo.stacks[sa], topo.stacks[sb]
+        bridge_a, bridge_b = topo.bridge_of(sa), topo.bridge_of(sb)
+        chans = topo.route_channels(sa, sb)
+        lats = [topo.links[c // 2].latency for c in chans]
+        t_ready = cycle + 3                      # the CCU's 3-cycle setup
+        window = t_ready // n
+        n_win = max(1, -(-nbytes // self.bottleneck_bytes(sa, sb)))
+        fm = full_mask(n)
+        # Snapshot (copy) the masks: reserve_arrays mutates the live cache
+        # in place, and a phase-2 rollback must leave the candidate loop
+        # reading the pre-reservation availability.
+        occ_a = near.table._ports.masks_at(window).copy()
+        dist_a = mesh_a.manhattan(s_loc, bridge_a)
+        if s_loc == bridge_a:
+            vec_a = None
+            avail_a = int(occ_a[bridge_a, PORT_LOCAL])
+        else:
+            vec_a = _wavefront_host(occ_a, mesh_a, n, s_loc, bridge_a, 0)
+            avail_a = int(vec_a[bridge_a]) | int(occ_a[bridge_a, PORT_LOCAL])
+        link_masks = self.links.masks_at(window).copy()
+        dist_b = mesh_b.manhattan(bridge_b, d_loc)
+        T = sum(1 + lat for lat in lats)
+        # Bridge-arrival candidates in earliest-injection order (same
+        # (start, slot) order the single-stack slot choice uses).
+        def _start(a: int) -> int:
+            s_inj = (a - dist_a) % n
+            return t_ready + ((s_inj - t_ready) % n)
+        cands = sorted((a for a in range(n) if bit_is_free(avail_a, a)),
+                       key=lambda a: (_start(a), a))
+        committed = False
+        for a in cands:
+            chain, s, free = [], (a + 1) % n, True
+            for c, lat in zip(chans, lats):
+                if not bit_is_free(int(link_masks[c]), s):
+                    free = False
+                    break
+                chain.append((c, s))
+                s = (s + 1 + lat) % n
+            if not free:
+                continue
+            s_far = (a + T) % n
+            # -- phase 1: the near authority reserves hops + channel slots.
+            near_hops = ([(bridge_a, PORT_LOCAL, a)] if s_loc == bridge_a
+                         else traceback(vec_a, occ_a, mesh_a, n, s_loc,
+                                        bridge_a, a))
+            idx_a = SlotTable._hops_idx(near_hops)
+            prev_a = near.table._ports.expiry[idx_a].copy()
+            near.table._ports.reserve_arrays(idx_a, window + n_win)
+            idx_l = (np.fromiter((c for c, _ in chain), np.int64, len(chain)),
+                     np.fromiter((sl for _, sl in chain), np.int64,
+                                 len(chain)))
+            prev_l = self.links.expiry[idx_l].copy()
+            self.links.reserve_arrays(idx_l, window + n_win)
+            # -- phase 2: the far authority tries to commit.  Injection is
+            # pinned: only s_far is free in the init vector, so any circuit
+            # the search finds leaves the far bridge exactly when the link
+            # chain delivers the beat.
+            occ_b = far.table._ports.masks_at(window)
+            far_hops = None
+            if d_loc == bridge_b:
+                if bit_is_free(int(occ_b[bridge_b, PORT_LOCAL]), s_far):
+                    far_hops = [(bridge_b, PORT_LOCAL, s_far)]
+            else:
+                init = fm ^ (1 << s_far)
+                vec_b = _wavefront_host(occ_b, mesh_b, n, bridge_b, d_loc,
+                                        init)
+                a_far = (s_far + dist_b) % n
+                if bit_is_free(int(vec_b[d_loc]) | int(occ_b[d_loc,
+                                                             PORT_LOCAL]),
+                               a_far):
+                    far_hops = traceback(vec_b, occ_b, mesh_b, n, bridge_b,
+                                         d_loc, a_far)
+            if far_hops is None:
+                near.table._ports.release_arrays(idx_a, prev_a)
+                self.links.release_arrays(idx_l, prev_l)
+                self.rollbacks += 1
+                continue
+            idx_b = SlotTable._hops_idx(far_hops)
+            far.table._ports.reserve_arrays(idx_b, window + n_win)
+            self.link_windows += n_win * len(chain)
+            committed = True
+            return StackedCircuit(
+                src=src, dst=dst, start_cycle=_start(a), n_windows=n_win,
+                near_hops=near_hops, far_hops=far_hops, link_slots=chain,
+                distance=dist_a + T + dist_b, _n_slots_hint=n)
+        if not committed:
+            self.denied += 1
+        return None

@@ -1,4 +1,6 @@
 """repro_torch.core.bitvec / topology against repro.core (bit for bit)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -109,8 +111,17 @@ def test_paper_mesh_and_single_stack_factory():
     m = ptop.make_topology(1, (4, 4, 2), vault_span_y=1)
     r = rtop.make_topology(1, (4, 4, 2), vault_span_y=1)
     assert (m.X, m.Y, m.Z, m.vault_span_y) == (r.X, r.Y, r.Z, r.vault_span_y)
-    with pytest.raises(NotImplementedError, match="multi-stack"):
-        ptop.make_topology(2)
+    # n_stacks > 1 builds a StackedTopology equal to the reference's.
+    ps, rs = ptop.make_topology(2, (4, 4, 2)), rtop.make_topology(2, (4, 4, 2))
+    assert isinstance(ps, ptop.StackedTopology)
+    assert (ps.n_stacks, ps.link, ps.link_latency, ps.link_bytes,
+            ps.n_nodes, ps.offsets, ps.n_channels) == \
+        (rs.n_stacks, rs.link, rs.link_latency, rs.link_bytes, rs.n_nodes,
+         rs.offsets, rs.n_channels)
+    assert [dataclasses.astuple(ln) for ln in ps.links] == \
+        [dataclasses.astuple(ln) for ln in rs.links]
+    assert [(m.X, m.Y, m.Z, m.vault_span_y) for m in ps.stacks] == \
+        [(m.X, m.Y, m.Z, m.vault_span_y) for m in rs.stacks]
 
 
 @pytest.mark.parametrize("dims", [(0, 2, 2), (2, 3, 1), (2, 2, 2, 0)])

@@ -22,8 +22,9 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.rglru_scan, repro_torch.configs\n"
         "import repro_torch.models, repro_torch.train, repro_torch.serving\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.memsim\n"
         "from repro_torch.core import NomFabric, TdmAllocatorLight\n"
+        "from repro_torch.core import FabricCluster, nom_allreduce_banks\n"
         "from repro_torch.models import make_model, params_from_reference\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'repro' or m.startswith('repro.'))\n"
@@ -49,22 +50,39 @@ def test_sources_never_import_jax_or_repro():
 
 def test_default_device_is_cuda():
     """Entry points default to device="cuda": without a GPU they raise
-    (no silent CPU run); with one they build on it."""
-    from repro_torch.core import PAPER_MESH, NomFabric, SlotTable, \
-        TdmAllocator
+    (no silent CPU run); with one they build on it.  ``device="cpu"``
+    runs the plain versions."""
+    from repro_torch.core import PAPER_MESH, FabricCluster, NomFabric, \
+        SlotTable, TdmAllocator, make_topology
     from repro_torch.kernels.slot_alloc import fused
+    from repro_torch.memsim import SimParams, WorkloadSpec, generate, \
+        simulate
+    from repro_torch.memsim.simulator import MemorySystem
     occ = np.zeros((PAPER_MESH.n_nodes, 7), np.uint32)
+    topo = make_topology(2, (4, 4, 2))
+    reqs = generate(WorkloadSpec("fileCopy20", n_requests=50, seed=0))
     calls = [lambda: TdmAllocator(PAPER_MESH),
              lambda: NomFabric(mesh=PAPER_MESH),
              lambda: SlotTable(PAPER_MESH),
              lambda: fused.fused_prepare(occ, [0], [9], [3], mesh=PAPER_MESH,
-                                         n_slots=16)]
+                                         n_slots=16),
+             lambda: FabricCluster(topo),
+             lambda: MemorySystem(SimParams()),
+             lambda: MemorySystem(SimParams(config="conventional")),
+             lambda: simulate(reqs, SimParams()),
+             lambda: simulate(reqs, SimParams(config="rowclone"))]
     if torch.cuda.is_available():
         assert TdmAllocator(PAPER_MESH).table.device.type == "cuda"
+        assert FabricCluster(topo).fabrics[1].allocator.device.type == "cuda"
+        assert MemorySystem(SimParams()).alloc.device.type == "cuda"
         return
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    assert FabricCluster(topo, device="cpu").fabrics[1].allocator.device \
+        .type == "cpu"
+    assert MemorySystem(SimParams(), device="cpu").alloc.device.type == "cpu"
+    assert simulate(reqs, SimParams(), device="cpu").reqs == 50
     with pytest.raises(ValueError, match="unsupported device"):
         TdmAllocator(PAPER_MESH, device="meta")
 
