@@ -87,15 +87,30 @@ Phases (each prints its lines; any failure exits non-zero):
    after must have launched its own kernels (``PATH_KERNELS``, in each
    stack's CCU) and no other; µs per allocation per path over rotated
    rounds;
-8. models — ``recurrentgemma-smoke`` and ``mamba2-smoke`` on the card
+8. serving SLO — the serving control plane (``repro_torch.serving``) at
+   ``benchmarks/bench_serving_slo.py``'s settings: every arrival mix
+   under every admission strategy (seed 7, 160 ticks, mesh 4x4x2,
+   deadline ticks 12, queue depth 16) with the engine's fabric on the
+   card, each drive with the launch counts set to 0 just before it and
+   read just after (the fused prepare kernel once per fused CCU wave,
+   nothing else) and held equal to the same drive on the CPU (record and
+   per-tick ledger, telemetry, batch reports, slot tables); the
+   benchmark's gate (deadline misses fewer deadlines than fifo on
+   deadline_heavy); per drive the record, µs per tick and the wall split
+   into kernels, the rest of the fabric and the control plane;
+9. models — ``recurrentgemma-smoke`` and ``mamba2-smoke`` on the card
    against the CPU plain versions; then ``recurrentgemma-9b`` and
    ``mamba2-130m`` at full width and depth from seeded weights on the
    card: the prefill step (recurrentgemma B=2 x S=4096: 12
    flash_attention and 26 rglru_scan launches; mamba2 B=4 x S=8192: 24
    ssd_scan launches; nothing else), decode vs forward over 64 tokens,
-   ``Engine.generate`` for 4 requests (no launch), times, a profile of
-   one prefill and of one decode step, and the peak memory;
-9. the kernel table (one JSON line, launches per path), the card's name
+   ``Engine.generate`` for 4 requests untracked (no launch) and with its
+   default transfer tracking on the paper mesh (the fused prepare kernel
+   once per fused CCU wave; tokens equal to the untracked run; telemetry,
+   reports and slot tables equal to a CPU engine stepped through the
+   same tenant lifetime), times, a profile of one prefill and of one
+   decode step, and the peak memory;
+10. the kernel table (one JSON line, launches per path), the card's name
    and power limit, and the closing ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -1842,7 +1857,128 @@ def cluster_where(topo, device, chunks) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: recurrentgemma-9b and mamba2-130m served at full width
+# Phase 8: the serving control plane under the SLO harness
+# ---------------------------------------------------------------------------
+# benchmarks/bench_serving_slo.py's published settings: every arrival mix
+# under every admission strategy, seed 7, 160 ticks, on
+# make_slo_engine's stub engine over a 4x4x2 bank mesh with queue
+# admission, 12 deadline ticks and a queue of 16; its gate: on
+# deadline_heavy the deadline strategy misses fewer deadlines than fifo.
+SLO_SEED, SLO_TICKS = 7, 160
+SLO_MESH, SLO_DEADLINE_TICKS, SLO_QUEUE_DEPTH = (4, 4, 2), 12, 16
+SLO_STRATEGIES = ("fifo", "deadline", "priority", "hybrid", "stall_aware")
+SLO_GATE_MIX = "deadline_heavy"
+
+
+def slo_engine(strategy: str, device):
+    from repro_torch.serving import make_slo_engine
+    return make_slo_engine(strategy, mesh=SLO_MESH,
+                           deadline_ticks=SLO_DEADLINE_TICKS,
+                           tenant_queue_depth=SLO_QUEUE_DEPTH,
+                           device=str(device))
+
+
+def fabric_state(fab):
+    """A single-stack fabric's port and bus expiry tables and busy
+    masks."""
+    t = fab.allocator.table
+    return [a.copy() for a in (t._ports.expiry, t._ports.masks,
+                               t._bus.expiry, t._bus.masks)]
+
+
+def same_engines(path: str, eng, cpu) -> None:
+    """An engine on the card and its twin on the CPU: equal telemetry,
+    batch reports, fabric telemetry and slot tables."""
+    check(eng.transfer_telemetry() == cpu.transfer_telemetry(),
+          f"{path}: card and CPU engine telemetry differ")
+    check([dataclasses.asdict(r) for r in eng.reports]
+          == [dataclasses.asdict(r) for r in cpu.reports],
+          f"{path}: card and CPU batch reports differ")
+    check(eng.fabric.telemetry() == cpu.fabric.telemetry(),
+          f"{path}: card and CPU fabric telemetry differ")
+    check(all(np.array_equal(a, b) for a, b in zip(
+        fabric_state(eng.fabric), fabric_state(cpu.fabric))),
+        f"{path}: card and CPU slot tables differ")
+
+
+def phase_serving_slo(device, ticks=SLO_TICKS):
+    """Every (mix, strategy) drive of the SLO harness with the engine's
+    fabric on the card, each with the launch counts set to 0 just before
+    it and read just after (the fused prepare kernel once per fused
+    wave of the fabric's telemetry, and nothing else), held equal to the
+    same drive on the CPU (record with its per-tick ledger, telemetry,
+    reports, slot tables); the benchmark's gate on the card's records.
+    Per drive: the record, µs per tick on the card and on the CPU, the
+    launches, and the wall split into kernels (each launch priced at its
+    own batch size's event time on this mesh), the rest of the fabric
+    (``NomFabric.schedule`` less its kernels: the CCU's host pipeline
+    and the launches' host side) and the control plane (engine and load
+    generator).  Returns the per-drive launches keyed
+    "serving_slo/<mix>/<strategy>"."""
+    import torch
+    from repro_torch.core import NomFabric, make_topology
+    from repro_torch.kernels import _lib
+    from repro_torch.serving import MIXES, drive
+    launches, batches, runs, miss = {}, {}, {}, {}
+    for mix in MIXES:
+        for strategy in SLO_STRATEGIES:
+            path = f"serving_slo/{mix}/{strategy}"
+            eng, secs = slo_engine(strategy, device), {}
+            _lib.reset_launch_counts()
+            with batches_launched(batches.setdefault(path, {})), \
+                    seconds_in(secs, {"fabric": (NomFabric, "schedule")}):
+                t0 = time.perf_counter()
+                rec = drive(eng, mix, ticks, seed=SLO_SEED, trace=True)
+                torch.cuda.synchronize(device)
+                wall = time.perf_counter() - t0
+            launches[path] = dict(_lib.launch_counts)
+            waves = eng.fabric.telemetry()["fused_waves"]
+            check(waves > 0, f"{path}: no wave went to the fused kernel")
+            check_launches(path, launches[path], {"fused_prepare": waves})
+            cpu = slo_engine(strategy, "cpu")
+            t0 = time.perf_counter()
+            want = drive(cpu, mix, ticks, seed=SLO_SEED, trace=True)
+            cpu_wall = time.perf_counter() - t0
+            check(rec == want, f"{path}: card and CPU records differ")
+            same_engines(path, eng, cpu)
+            runs[path] = (rec, wall, secs.get("fabric", 0.0), cpu_wall)
+            miss[(mix, strategy)] = rec["miss_rate"]
+    check(miss[(SLO_GATE_MIX, "deadline")] < miss[(SLO_GATE_MIX, "fifo")],
+          f"on {SLO_GATE_MIX} deadline misses "
+          f"{miss[(SLO_GATE_MIX, 'deadline')]}, fifo "
+          f"{miss[(SLO_GATE_MIX, 'fifo')]}: the benchmark's gate fails")
+    price = price_launches(make_topology(mesh=SLO_MESH), device, batches, {})
+    total = {"kernels": 0.0, "fabric": 0.0, "control": 0.0, "wall": 0.0}
+    for path, (rec, wall, fab_s, cpu_wall) in runs.items():
+        kern = sum(v * price[k] for k, v in batches[path].items())
+        split = {"kernels": kern, "fabric": fab_s * 1e3 - kern,
+                 "control": (wall - fab_s) * 1e3, "wall": wall * 1e3}
+        for k in total:
+            total[k] += split[k]
+        summary = {k: v for k, v in rec.items() if k != "per_tick"}
+        print(f"[serving_slo] {path[len('serving_slo/'):]} {ticks} ticks: "
+              f"{json.dumps(summary)}; {wall * 1e6 / ticks:.1f} us per "
+              f"tick on the card, {cpu_wall * 1e6 / ticks:.1f} on the CPU "
+              f"(equal record, telemetry, reports, slot tables); launches "
+              f"fused_prepare {launches[path]['fused_prepare']} "
+              f"wavefront_search {launches[path]['wavefront_search']}; ms "
+              + " ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + f" (kernels {100 * kern / (wall * 1e3):.2f} % of the wall)",
+              flush=True)
+    print(f"[serving_slo] {len(runs)} drives of {ticks} ticks equal to the "
+          f"CPU; gate on {SLO_GATE_MIX}: deadline miss rate "
+          f"{miss[(SLO_GATE_MIX, 'deadline')]:.4f} < fifo "
+          f"{miss[(SLO_GATE_MIX, 'fifo')]:.4f}; ms in all "
+          + " ".join(f"{k} {v:.2f}" for k, v in total.items())
+          + f" (kernels {100 * total['kernels'] / total['wall']:.2f} %); "
+          "launches by (kernel, batch) priced at "
+          + json.dumps({f"{k} B={b}": round(v, 5)
+                        for (k, b), v in sorted(price.items())}), flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: recurrentgemma-9b and mamba2-130m served at full width
 # ---------------------------------------------------------------------------
 # arch -> (prefill batch, prefill length, launches of one prefill step):
 # each layer launches its mixer's kernel once (MIXER_KERNEL).
@@ -2135,8 +2271,83 @@ def phase_model(device, arch):
           f"({gen_s * 1e3 / steps:.2f} ms per decode step, {steps} steps); "
           f"launches {json.dumps(launches[f'{arch}/generate'])}; peak device "
           f"memory {peak / 2**30:.2f} GiB", flush=True)
+    launches.update(tracked_generate(model, cfg, device, prompt, out))
     del model, eng
     torch.cuda.empty_cache()
+    return launches
+
+
+def tracked_generate(model, cfg, device, prompt, want):
+    """``Engine.generate`` with its default ``track_transfers=True`` and
+    the fabric on the card (launch/serve.py's defaults: the paper mesh,
+    16 slots), after one warm-up stream on another tracked engine, with
+    the launch counts set to 0 just before it and read just after: the
+    tokens must equal the untracked run's, the fused prepare kernel must
+    have launched once per fused wave of the fabric's telemetry and
+    nothing else, and a CPU engine on the same leaf specs, stepped
+    through the same tenant lifetime (open, one ``schedule_tick`` per
+    step, close), must give equal telemetry, reports and slot tables.
+    Then ms per decode step tracked and untracked, fresh engines in
+    turns (tracked, untracked, untracked, tracked: the counted run
+    first), and the tracked runs' ms per step in ``open_tenant``,
+    ``schedule_tick`` and ``close_tenant``, and in ``NomFabric.schedule``
+    within the last two.  Returns the launches keyed
+    "<arch>/generate_tracked"."""
+    import torch
+    from repro_torch.core import NomFabric
+    from repro_torch.kernels import _lib
+    from repro_torch.serving import Engine
+    path = f"{cfg.name}/generate_tracked"
+    max_len, steps = SERVE_P + SERVE_N + 8, SERVE_P + SERVE_N - 1
+    owners = {"open": (Engine, "open_tenant"),
+              "tick": (Engine, "schedule_tick"),
+              "close": (Engine, "close_tenant"),
+              "fabric": (NomFabric, "schedule")}
+    Engine(model, cfg, max_len=max_len, device=device).generate(prompt, 2)
+    times = {True: [], False: []}
+    parts: dict = {}
+
+    def run(track: bool):
+        eng = Engine(model, cfg, max_len=max_len, device=device,
+                     track_transfers=track)
+        with seconds_in(parts, owners) if track else \
+                contextlib.nullcontext():
+            t0 = time.perf_counter()
+            out = eng.generate(prompt, SERVE_N)
+            torch.cuda.synchronize(device)
+        times[track].append((time.perf_counter() - t0) * 1e3 / steps)
+        return eng, out
+    _lib.reset_launch_counts()
+    eng, out = run(True)
+    launches = {path: dict(_lib.launch_counts)}
+    check(torch.equal(out, want),
+          f"{path}: tokens differ from the untracked run")
+    fab = eng.fabric.telemetry()
+    check_launches(path, launches[path], {"fused_prepare": fab["fused_waves"]})
+    cpu = Engine(model, cfg, max_len=max_len, device="cpu")
+    specs = eng._leaf_specs(SERVE_B)
+    check(cpu._leaf_specs(SERVE_B) == specs, f"{path}: leaf specs differ")
+    cpu.open_tenant("gen0", SERVE_B, queue=False)
+    for _ in range(steps):
+        cpu.schedule_tick(["gen0"])
+    cpu.close_tenant("gen0")
+    same_engines(path, eng, cpu)
+    for track in (False, False, True):
+        run(track)
+    tel = eng.transfer_telemetry()
+    per_step = {k: v * 1e3 / (2 * steps) for k, v in parts.items()}
+    print(f"[serve] {cfg.name} Engine.generate tracking transfers on the "
+          f"card: tokens equal to the untracked run; {len(specs)} cache "
+          f"leaves ({', '.join(s.tag for s in specs)}), "
+          f"{tel['requests']} requests in {tel['steps']} batches "
+          f"({tel['init_requests']} INIT), {fab['fused_waves']} fused and "
+          f"{fab['host_waves']} host CCU waves; telemetry, reports and slot "
+          f"tables equal to a CPU engine's; ms per decode step, in turns: "
+          f"tracked {[round(t, 2) for t in times[True]]}, untracked "
+          f"{[round(t, 2) for t in times[False]]}; in the tracked runs, "
+          f"ms a step in " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                       per_step.items())
+          + f"; launches {json.dumps(launches[path])}", flush=True)
     return launches
 
 
@@ -2285,6 +2496,8 @@ def main() -> int:
     cluster_where(topo, device, cchunks)
     share = kernel_share(PAPER_MESH, device, cbatches, cstats, rows)
     print(f"[cluster where] kernel time {json.dumps(share)}", flush=True)
+
+    launches.update(phase_serving_slo(device))
 
     for arch in MODELS:
         phase_smoke_model(device, arch)

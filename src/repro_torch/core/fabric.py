@@ -41,7 +41,7 @@ import numpy as np
 
 from .nom_collectives import _dor_path, plan_transfers
 from .scheduler import (ScheduleReport, TransferRequest, _as_copy_requests,
-                        _as_transfers, _tdm_report)
+                        _as_transfers, _tdm_report, window_occupancy)
 from .slot_alloc import (AllocResult, Circuit, CopyRequest,
                          SegmentedAllocator, TdmAllocator)
 from .topology import Mesh3D, StackedTopology
@@ -988,21 +988,13 @@ class FabricCluster:
 
     def _cross_report(self, n_cross: int, circuits, stalls,
                       n_reduce: int = 0) -> ScheduleReport:
-        n = self.n_slots
-        starts = [c.start_cycle // n for c in circuits]
-        w0 = min(starts, default=0)
-        span = max((s - w0 + c.n_windows for s, c in zip(starts, circuits)),
-                   default=0)
-        active = np.zeros(span, np.int64)
-        for s, c in zip(starts, circuits):
-            active[s - w0:s - w0 + c.n_windows] += 1
-        busy = active[active > 0]
+        span, max_inflight, avg_inflight = window_occupancy(circuits,
+                                                            self.n_slots)
         return ScheduleReport(
             backend="tdm", n_requests=n_cross, n_scheduled=len(circuits),
-            n_windows=int(span),
-            max_inflight=int(busy.max()) if busy.size else 0,
-            avg_inflight=float(busy.mean()) if busy.size else 0.0,
-            stall_cycles=stalls, n_cross_stack=n_cross, n_reduce=n_reduce)
+            n_windows=span, max_inflight=max_inflight,
+            avg_inflight=avg_inflight, stall_cycles=stalls,
+            n_cross_stack=n_cross, n_reduce=n_reduce)
 
     # -- cross-stack reduce trees --------------------------------------------
     def _tree_snapshot(self):

@@ -228,22 +228,45 @@ def _as_transfers(transfers) -> list[Transfer]:
     return out
 
 
+def window_occupancy(circuits, n_slots: int) -> tuple[int, int, float]:
+    """The reference's window-occupancy histogram, summarised: a circuit
+    holds its slots for ``n_windows`` consecutive windows from its
+    streaming window (``start_cycle // n_slots``); circuits anchored at
+    different cycles are not stacked onto one window.  Returns (span of
+    windows from the earliest start, the most circuits live in one
+    window, their mean over the windows where any is live).
+
+    The reference fills one counter per window of the span, so a
+    multi-megabyte circuit (a full-width cache leaf) costs millions of
+    counters.  Here the count is a step function over the sorted circuit
+    boundaries, O(circuits log circuits).  The results are the same
+    numbers: the mean is an exact integer total over an exact count, one
+    correctly rounded division, as numpy's mean of the int64 histogram
+    (every partial sum an integer below 2**53)."""
+    if not circuits:
+        return 0, 0, 0.0
+    starts = np.array([c.start_cycle // n_slots for c in circuits], np.int64)
+    ends = starts + np.array([c.n_windows for c in circuits], np.int64)
+    span = int((ends - starts.min()).max())
+    edges, inv = np.unique(np.concatenate([starts, ends]),
+                           return_inverse=True)
+    step = np.zeros(len(edges), np.int64)
+    np.add.at(step, inv, np.repeat(np.array([1, -1], np.int64), len(starts)))
+    live = np.cumsum(step)[:-1]          # circuits live in [edge, next edge)
+    width = np.diff(edges)
+    busy = live > 0
+    n_busy = int(width[busy].sum())
+    if not n_busy:
+        return span, 0, 0.0
+    total = int((live[busy] * width[busy]).sum())
+    return span, int(live[busy].max()), total / n_busy
+
+
 def _tdm_report(alloc: TdmAllocator, reqs: list[CopyRequest],
                 results: list[AllocResult], cycle: int) -> ScheduleReport:
     circuits = [r.circuit for r in results if r.circuit is not None]
-    # Window-occupancy histogram: a circuit holds its slots for n_windows
-    # consecutive windows starting at its streaming window — circuits
-    # anchored at different cycles (per-request anchors) must not be
-    # stacked onto the same window.
-    n = alloc.n_slots
-    starts = [c.start_cycle // n for c in circuits]
-    w0 = min(starts, default=0)
-    span = max((s - w0 + c.n_windows for s, c in zip(starts, circuits)),
-               default=0)
-    active = np.zeros(span, np.int64)
-    for s, c in zip(starts, circuits):
-        active[s - w0:s - w0 + c.n_windows] += 1
-    busy = active[active > 0]
+    span, max_inflight, avg_inflight = window_occupancy(circuits,
+                                                        alloc.n_slots)
     # Queueing delay: injection happens at start_cycle; the earliest a
     # request could inject is its anchor + the 3-cycle CCU setup pipeline.
     stall = 0
@@ -255,8 +278,7 @@ def _tdm_report(alloc: TdmAllocator, reqs: list[CopyRequest],
     rep = alloc.last_report
     return ScheduleReport(
         backend="tdm", n_requests=len(results), n_scheduled=len(circuits),
-        n_windows=int(span), max_inflight=int(busy.max()) if busy.size else 0,
-        avg_inflight=float(busy.mean()) if busy.size else 0.0,
+        n_windows=span, max_inflight=max_inflight, avg_inflight=avg_inflight,
         stall_cycles=stall,
         search_rounds=rep.search_rounds, conflicts=rep.conflicts,
         n_searched=rep.n_searched,

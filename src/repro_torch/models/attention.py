@@ -118,10 +118,10 @@ class Attention(nn.Module):
         return torch.einsum("bsnh,nhd->bsd", out, self.wo.to(out.dtype)), cache
 
     def init_cache(self, batch: int, max_len: int,
-                   dtype=COMPUTE_DTYPE) -> dict:
+                   dtype=COMPUTE_DTYPE, device=None) -> dict:
         c = self.cfg
         n = min(max_len, c.window) if c.window is not None else max_len
         shape = (batch, n, c.n_kv, c.head_dim)
-        dev = self.wq.device
+        dev = self.wq.device if device is None else device
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev)}

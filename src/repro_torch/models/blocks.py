@@ -75,10 +75,11 @@ class DecoderLayer(nn.Module):
             h, cache = self.mixer.decode(h, cache)
         return self._ffn(x + h), cache
 
-    def init_cache(self, batch: int, max_len: int, dtype) -> dict:
+    def init_cache(self, batch: int, max_len: int, dtype,
+                   device=None) -> dict:
         if isinstance(self.mixer, Attention):
-            return self.mixer.init_cache(batch, max_len, dtype)
-        return self.mixer.init_cache(batch, dtype)
+            return self.mixer.init_cache(batch, max_len, dtype, device)
+        return self.mixer.init_cache(batch, dtype, device)
 
 
 class LayerStack(nn.Module):
@@ -103,6 +104,7 @@ class LayerStack(nn.Module):
             new.append(cache)
         return x, new
 
-    def init_caches(self, batch: int, max_len: int, dtype) -> list:
-        return [layer.init_cache(batch, max_len, dtype)
+    def init_caches(self, batch: int, max_len: int, dtype,
+                    device=None) -> list:
+        return [layer.init_cache(batch, max_len, dtype, device)
                 for layer in self.layers]

@@ -49,6 +49,25 @@ class CausalLM(nn.Module):
     def init_caches(self, batch: int, max_len: int) -> list:
         return self.stack.init_caches(batch, max_len, self.compute_dtype)
 
+    def cache_layout(self, batch: int, max_len: int) -> dict:
+        """The caches as the reference lays them out, on the ``meta``
+        device (shapes and dtypes only): ``{"groups": {"l<i>": ...},
+        "tail": {"l<i>": ...}}``, pattern position ``i`` of the scan
+        groups stacked on a leading ``n_groups`` axis, then the layers
+        past the last whole group.  The serving engine places cache
+        leaves by this tree, so its tags and byte counts are the
+        reference's."""
+        per_layer = self.stack.init_caches(batch, max_len,
+                                           self.compute_dtype, "meta")
+        gs = len(self.cfg.pattern)
+        n_groups = self.cfg.n_layers // gs
+        groups = {f"l{i}": {k: v.expand((n_groups,) + v.shape)
+                            for k, v in per_layer[i].items()}
+                  for i in range(gs if n_groups else 0)}
+        tail = {f"l{i}": per_layer[n_groups * gs + i]
+                for i in range(self.cfg.n_layers % gs)}
+        return {"groups": groups, "tail": tail}
+
     def decode_step(self, token: torch.Tensor, caches: list, pos: int):
         """token: (B, 1) -> (logits (B, 1, V) fp32, caches)."""
         x, caches = self.stack.decode(self.embed(token, self.compute_dtype),

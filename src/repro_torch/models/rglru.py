@@ -129,9 +129,10 @@ class RecurrentBlock(nn.Module):
         return torch.einsum("bsw,wd->bsd", x * gate,
                             self.proj_out.to(u.dtype))
 
-    def init_cache(self, batch: int, dtype=COMPUTE_DTYPE) -> dict:
+    def init_cache(self, batch: int, dtype=COMPUTE_DTYPE,
+                   device=None) -> dict:
         c = self.cfg
-        dev = self.proj_x.device
+        dev = self.proj_x.device if device is None else device
         return {"conv": torch.zeros((batch, c.conv_width - 1, c.width),
                                     dtype=dtype, device=dev),
                 "h": torch.zeros((batch, c.width), dtype=torch.float32,

@@ -120,9 +120,10 @@ class Mamba2(nn.Module):
         return self._out(y, x, z)
 
     # -- O(1) decode -----------------------------------------------------------
-    def init_cache(self, batch: int, dtype=COMPUTE_DTYPE) -> dict:
+    def init_cache(self, batch: int, dtype=COMPUTE_DTYPE,
+                   device=None) -> dict:
         c = self.cfg
-        dev = self.in_proj.device
+        dev = self.in_proj.device if device is None else device
         return {"conv": torch.zeros((batch, c.conv_width - 1,
                                      c.d_inner + 2 * c.d_state),
                                     dtype=dtype, device=dev),

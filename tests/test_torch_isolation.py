@@ -23,6 +23,7 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.kernels.rglru_scan, repro_torch.configs\n"
         "import repro_torch.models, repro_torch.train, repro_torch.serving\n"
         "import repro_torch.launch.serve, repro_torch.memsim\n"
+        "from repro_torch.serving import BankPool, drive, make_slo_engine\n"
         "from repro_torch.core import NomFabric, TdmAllocatorLight\n"
         "from repro_torch.core import FabricCluster, nom_allreduce_banks\n"
         "from repro_torch.models import make_model, params_from_reference\n"
@@ -58,6 +59,8 @@ def test_default_device_is_cuda():
     from repro_torch.memsim import SimParams, WorkloadSpec, generate, \
         simulate
     from repro_torch.memsim.simulator import MemorySystem
+    from repro_torch.serving import Engine, make_slo_engine
+    from repro_torch.serving.loadgen import CacheStub
     occ = np.zeros((PAPER_MESH.n_nodes, 7), np.uint32)
     topo = make_topology(2, (4, 4, 2))
     reqs = generate(WorkloadSpec("fileCopy20", n_requests=50, seed=0))
@@ -70,11 +73,14 @@ def test_default_device_is_cuda():
              lambda: MemorySystem(SimParams()),
              lambda: MemorySystem(SimParams(config="conventional")),
              lambda: simulate(reqs, SimParams()),
-             lambda: simulate(reqs, SimParams(config="rowclone"))]
+             lambda: simulate(reqs, SimParams(config="rowclone")),
+             lambda: Engine(model=CacheStub(), cfg=None),
+             lambda: make_slo_engine()]
     if torch.cuda.is_available():
         assert TdmAllocator(PAPER_MESH).table.device.type == "cuda"
         assert FabricCluster(topo).fabrics[1].allocator.device.type == "cuda"
         assert MemorySystem(SimParams()).alloc.device.type == "cuda"
+        assert make_slo_engine().fabric.allocator.device.type == "cuda"
         return
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -83,6 +89,8 @@ def test_default_device_is_cuda():
         .type == "cpu"
     assert MemorySystem(SimParams(), device="cpu").alloc.device.type == "cpu"
     assert simulate(reqs, SimParams(), device="cpu").reqs == 50
+    assert make_slo_engine(device="cpu").fabric.allocator.device.type \
+        == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         TdmAllocator(PAPER_MESH, device="meta")
 

@@ -343,9 +343,20 @@ def test_engine_generate_keeps_the_prompt(jx, port):
 
 
 def test_engine_track_transfers_is_not_ported(port):
+    """The serving control plane is ported: ``Engine(model, cfg)``
+    tracks transfers by default, as the reference does, with its fabric
+    on the card (without a GPU that raises; ``device="cpu"`` runs the
+    plain versions).  tests/test_torch_serving.py holds it against the
+    reference."""
     cfg, model = port
-    with pytest.raises(NotImplementedError, match="Serving control plane"):
-        Engine(model, cfg)
+    if torch.cuda.is_available():
+        assert Engine(model, cfg).fabric.allocator.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Engine(model, cfg)
+    eng = Engine(model, cfg, device="cpu")
+    assert eng.track_transfers and eng.pool is not None
+    assert eng.fabric.allocator.device.type == "cpu"
 
 
 def test_serve_launcher(port):
