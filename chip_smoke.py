@@ -46,7 +46,14 @@ Phases (each prints its lines; any failure exits non-zero):
    with the wgmma kernel timed at segment counts beside the rule's; every
    bf16 SSD result held to the plain version's fp32 result beyond bf16's
    own rounding (``SSD_EXACT_TOL``), which a kernel that rounds its fp32
-   operands to bf16 or TF32 exceeds;
+   operands to bf16 or TF32 exceeds; the attention at the dense family's
+   head-dim-128 prefill shapes (``DENSE_FLASH``: B=2 x S=4096 bf16,
+   qwen1.5-4b 20/20 heads, gemma3-27b 32/16 with its local window of
+   1024 and without, qwen2.5-32b 40/8, command-r-plus 96/8), each held
+   at 2e-2 and timed beside its bound and SDPA on the same mask,
+   qwen1.5-4b's also on five more seeds under FLASH_DENSE_TOL; and
+   command-r-plus-smoke's head dim of 8 through the model-layout wrapper
+   (zero-padded to 16) against the same call on the CPU;
 4. slice — ``NomFabric(mesh=PAPER_MESH, n_slots=16)`` with the fused,
    host and auto allocator backends, and a NoM-Light fabric, on one seeded
    stream of 4096 transfers (copies of 512 B-64 KB with 0-3 extra slots,
@@ -98,20 +105,35 @@ Phases (each prints its lines; any failure exits non-zero):
    benchmark's gate (deadline misses fewer deadlines than fifo on
    deadline_heavy); per drive the record, µs per tick and the wall split
    into kernels, the rest of the fabric and the control plane;
-9. models — ``recurrentgemma-smoke`` and ``mamba2-smoke`` on the card
-   against the CPU plain versions; then ``recurrentgemma-9b`` and
-   ``mamba2-130m`` at full width and depth from seeded weights on the
-   card: the prefill step (recurrentgemma B=2 x S=4096: 12
-   flash_attention and 26 rglru_scan launches; mamba2 B=4 x S=8192: 24
-   ssd_scan launches; nothing else), decode vs forward over 64 tokens,
+9. models — the smoke configs of recurrentgemma, mamba2, qwen1.5,
+   gemma3, qwen2.5 and command-r-plus (``SMOKE_ARCHS``) on the card
+   against the CPU plain versions; then ``recurrentgemma-9b``,
+   ``mamba2-130m`` and ``qwen1.5-4b`` at full width and depth and
+   ``gemma3-27b`` at full width on 8 of its 62 layers (``MODEL_LAYERS``)
+   from seeded weights on the card: the prefill step (recurrentgemma B=2
+   x S=4096: 12 flash_attention and 26 rglru_scan launches; mamba2 B=4 x
+   S=8192: 24 ssd_scan launches; qwen1.5 and gemma3 B=2 x S=4096: 40 and
+   8 flash_attention launches; nothing else), decode vs forward over 64
+   tokens,
    ``Engine.generate`` for 4 requests untracked (no launch) and with its
    default transfer tracking on the paper mesh (the fused prepare kernel
    once per fused CCU wave; tokens equal to the untracked run; telemetry,
    reports and slot tables equal to a CPU engine stepped through the
-   same tenant lifetime), times, a profile of one prefill and of one
-   decode step, and the peak memory;
-10. the kernel table (one JSON line, launches per path), the card's name
-   and power limit, and the closing ``{"ok": true, ...}`` line.
+   same tenant lifetime; gemma3's 16 cache leaves fill one fused wave a
+   step), times, a profile of one prefill and of one decode step, and
+   the peak memory; each model freed before the next;
+10. checkpoint — ``repro_torch.checkpoint`` on the card: mamba2-130m
+   saved from the card and restored onto it, every parameter and the
+   restored model's prefill logits bit-equal to those before the save; a
+   tree of bf16 and int32 leaves through a round trip; ``prune`` and
+   ``latest_step`` past a stale ``.tmp``; ``cross_stack_reshard_plan`` of
+   qwen1.5-4b's fp32 leaf bytes over four paper-mesh stacks, (0, 1, 2,
+   3) -> (0, 1, 2), with the CCUs on the card, equal to the CPU's, with
+   its launches; ``reshard_plan`` of the same bytes, (4, 4) -> (2, 4),
+   in conflict-free rounds;
+11. the kernel table (one JSON line, launches per path; the attention's
+   row also carries its dense shapes' times as ``dense``), the card's
+   name and power limit, and the closing ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -964,6 +986,32 @@ FLASH_CASES = [
 # Both only flip the bf16 rounding of a few outputs: one ulp of an output
 # in [1, 2) is 0.0078.
 FLASH_MODEL_TOL = 1e-2
+# The dense family's prefill shapes at head dim 128 (B=2 x S=4096, bf16,
+# q pre-scaled, scale 1, as the models call the kernel): qwen1.5-4b's
+# 20/20 heads (g=1), gemma3-27b's 32/16 (g=2) on its local layers'
+# window of 1024 and on its global layers, qwen2.5-32b's 40/8 (g=5) and
+# command-r-plus's 96/8 (g=12); each held against the plain version
+# (2e-2, the bf16 sweep's), timed beside its bound and SDPA on the same
+# mask.  qwen1.5-4b's is also held on the script's seed and five more
+# under FLASH_DENSE_TOL, set as FLASH_MODEL_TOL was: from the
+# reference's own spread at a cut of that shape (up to 0.0039 on six
+# seeds, tests/test_torch_model_kernels.py::test_flash_dense_cut_spread,
+# which holds it under the same bound), not from the kernel.
+DENSE_FLASH = {
+    "qwen1.5-4b": (2, 4096, 4096, 20, 20, 128, True, None, "bfloat16", 2e-2),
+    "gemma3-27b local": (2, 4096, 4096, 32, 16, 128, True, 1024, "bfloat16",
+                         2e-2),
+    "gemma3-27b global": (2, 4096, 4096, 32, 16, 128, True, None,
+                          "bfloat16", 2e-2),
+    "qwen2.5-32b": (2, 4096, 4096, 40, 8, 128, True, None, "bfloat16", 2e-2),
+    "command-r-plus-104b": (2, 4096, 4096, 96, 8, 128, True, None,
+                            "bfloat16", 2e-2),
+}
+FLASH_DENSE_TOL = 1e-2
+# command-r-plus-smoke's attention (B=2, S=80, 8/2 heads of 8) through
+# the model-layout wrapper, which zero-pads D = 8 to the kernel's 16:
+# against the same call on the CPU (the plain version), bf16 tolerance.
+FLASH_SMALL_D = (2, 80, 8, 2, 8)
 # (b, s, w, dtype, element offset of the views): the model's shape, then
 # odd ones; each held bit-equal to the plain version.  The wrapper's rule
 # (rglru_scan.plan) sends the first five to the TMA ring (S and W not
@@ -1411,11 +1459,115 @@ def phase_model_kernels(device):
     check(all(e < FLASH_MODEL_TOL for e in errs),
           f"flash_attention != plain at the model's shape on seeds "
           f"{SEED + 1}-{SEED + 5}: {errs}, bound {FLASH_MODEL_TOL}")
+    err_fa = max(err_fa, dense_flash_checks(device, gen, rows))
     err_rg = rglru_checks(device, gen, rows)
     err_ssd = ssd_checks(device, gen, rows)
     torch.cuda.empty_cache()
     return rows, {"flash_attention": err_fa, "rglru_scan": err_rg,
                   "ssd_scan": err_ssd}
+
+
+def dense_flash_checks(device, gen, rows) -> float:
+    """Flash attention at the dense family's head-dim-128 shapes
+    (DENSE_FLASH) against the plain version, each timed beside its bound
+    and SDPA on the same boolean mask (the KV heads repeated for each
+    q-head group); qwen1.5-4b's on five more seeds under FLASH_DENSE_TOL;
+    and command-r-plus-smoke's D = 8 through the model-layout wrapper
+    against the same call on the CPU.  Adds the times to the kernel
+    table's row (``dense``); returns the largest |kernel - plain|."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    err_max, dense = 0.0, {}
+
+    def inputs(case, g):
+        b, sq, sk, hq, hkv, d = case[:6]
+        td = getattr(torch, case[8])
+        q = torch.randn((b, hq, sq, d), generator=g, device=device) * d ** -0.5
+        k, v = (torch.randn((b, hkv, sk, d), generator=g, device=device)
+                for _ in range(2))
+        return q.to(td), k.to(td), v.to(td)
+
+    def kwargs(case):
+        return dict(causal=case[6], window=case[7], scale=1.0, seq_k=case[2])
+
+    for label, case in DENSE_FLASH.items():
+        b, sq, sk, hq, hkv, d, causal, window, dtype, tol = case
+        q, k, v = inputs(case, gen)
+        kw = kwargs(case)
+        got = flash_attention_fwd(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        check(math.isfinite(err) and err < tol,
+              f"flash_attention != plain at {label} {case}: {err}")
+        err_max = max(err_max, err)
+        qp = torch.arange(sq, device=device)[:, None]
+        kp = torch.arange(sk, device=device)[None, :]
+        mask = kp <= qp
+        if window is not None:
+            mask &= qp - kp < window
+        ke, ve = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+        sdpa_err = float((F.scaled_dot_product_attention(
+            q, ke, ve, attn_mask=mask, scale=1.0).float()
+            - want.float()).abs().max())
+        nbytes, ops = flash_work(*case[:9])
+        bnd, by = bound(nbytes, ops, BF16_OPS_PER_S)
+        row = {"shape": list(case[:9]), "max_abs_err": err,
+               "ms": ms_per_call(lambda: flash_attention_fwd(q, k, v, **kw),
+                                 10, device),
+               "plain_ms": ms_per_call(
+                   lambda: flash_attention_plain(q, k, v, **kw), 3, device),
+               "library_ms": ms_per_call(
+                   lambda: F.scaled_dot_product_attention(
+                       q, ke, ve, attn_mask=mask, scale=1.0), 10, device),
+               "bound_ms": bnd, "bound_by": by}
+        dense[label] = row
+        print(f"[kernels] flash_attention {label} b={b} sq={sq} hq={hq} "
+              f"hkv={hkv} (g={hq // hkv}) d={d} window={window} {dtype}: "
+              f"max |kernel - plain| {err:.3g} < {tol}; kernel "
+              f"{row['ms']:.4g} ms, plain {row['plain_ms']:.4g} ms, SDPA "
+              f"{row['library_ms']:.4g} ms (|SDPA - plain| {sdpa_err:.3g}), "
+              f"bound {bnd:.4g} ms by {by} (kernel at "
+              f"{row['ms'] / bnd:.3g}x)", flush=True)
+        del q, k, v, got, want, ke, ve, mask
+    case = DENSE_FLASH["qwen1.5-4b"]
+    errs = []
+    for seed in range(SEED + 1, SEED + 6):
+        q, k, v = inputs(case, torch.Generator(device).manual_seed(seed))
+        errs.append(float((flash_attention_fwd(q, k, v, **kwargs(case))
+                           .float() - flash_attention_plain(
+                               q, k, v, **kwargs(case)).float())
+                          .abs().max()))
+        del q, k, v
+    errs.insert(0, dense["qwen1.5-4b"]["max_abs_err"])
+    print(f"[kernels] flash_attention at qwen1.5-4b's shape on seeds "
+          f"{SEED}-{SEED + 5}: max |kernel - plain| {errs} < "
+          f"{FLASH_DENSE_TOL}", flush=True)
+    check(all(e < FLASH_DENSE_TOL for e in errs),
+          f"flash_attention != plain at qwen1.5-4b's shape: {errs}, bound "
+          f"{FLASH_DENSE_TOL}")
+    b, s, hq, hkv, d = FLASH_SMALL_D
+    q = torch.randn((b, s, hq, d), generator=gen, device=device).bfloat16()
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=device)
+            .bfloat16() for _ in range(2))
+    before = _lib.launch_counts["flash_attention"]
+    got = flash_attention(q, k, v, scale=1.0)
+    launched = _lib.launch_counts["flash_attention"] - before
+    want = flash_attention(q.cpu(), k.cpu(), v.cpu(), scale=1.0)
+    err = float((got.cpu().float() - want.float()).abs().max())
+    check(launched == 1 and tuple(got.shape) == (b, s, hq, d)
+          and err < 2e-2, f"flash_attention at D={d} through the wrapper: "
+          f"{launched} launches, shape {tuple(got.shape)}, max |kernel - "
+          f"plain| {err}")
+    print(f"[kernels] flash_attention command-r-plus-smoke b={b} s={s} "
+          f"hq={hq} hkv={hkv} d={d} through the model-layout wrapper (D "
+          f"zero-padded to 16), bf16: max |card - CPU plain| {err:.3g} < "
+          f"2e-2, one launch", flush=True)
+    rows["flash_attention"]["dense"] = dense
+    return max(err_max, err)
 
 
 # ---------------------------------------------------------------------------
@@ -1978,14 +2130,24 @@ def phase_serving_slo(device, ticks=SLO_TICKS):
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: recurrentgemma-9b and mamba2-130m served at full width
+# Phase 9: the served models at full width
 # ---------------------------------------------------------------------------
 # arch -> (prefill batch, prefill length, launches of one prefill step):
 # each layer launches its mixer's kernel once (MIXER_KERNEL).
 MODELS = {
     "recurrentgemma-9b": (2, 4096, {"flash_attention": 12, "rglru_scan": 26}),
     "mamba2-130m": (4, 8192, {"ssd_scan": 24}),
+    "qwen1.5-4b": (2, 4096, {"flash_attention": 40}),
+    "gemma3-27b": (2, 4096, {"flash_attention": 8}),
 }
+# Depth cuts (width untouched): gemma3-27b's 62 layers hold 27.0 B fp32
+# parameters (100.6 GiB), more than the card's 80 GB; 8 layers are one
+# whole 5-local + 1-global period and a tail of two local layers, so the
+# caches have both the reference's `groups` and its `tail` (4.712 B
+# parameters, 17.56 GiB).
+MODEL_LAYERS = {"gemma3-27b": 8}
+# The smoke configs run on the card against the CPU before the models.
+SMOKE_ARCHS = tuple(MODELS) + ("qwen2.5-32b", "command-r-plus-104b")
 MIXER_KERNEL = {"attn": "flash_attention", "rglru": "rglru_scan",
                 "ssm": "ssd_scan"}
 PARITY_TOKENS = 64
@@ -2167,6 +2329,8 @@ def phase_model(device, arch):
     from repro_torch.serving import Engine
     from repro_torch.train import make_prefill_step, make_serve_step
     cfg = get_config(arch)
+    if arch in MODEL_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=MODEL_LAYERS[arch])
     prefill_b, prefill_s, want = MODELS[arch]
     check(layer_kernels(cfg) == want,
           f"{arch}: layers launch {layer_kernels(cfg)}, expected {want}")
@@ -2205,7 +2369,8 @@ def phase_model(device, arch):
         torch.cuda.synchronize(device)
         warm.append((time.perf_counter() - t0) * 1e3)
     prof = profile_call(lambda: prefill(tokens))
-    print(f"[model] {cfg.name}: {n_params} parameters (fp32) initialised on "
+    print(f"[model] {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}): {n_params} parameters (fp32) initialised on "
           f"the card in {init_s:.2f} s; prefill B={prefill_b} x "
           f"S={prefill_s}: {first_ms:.1f} ms first, {warm} ms warm; launches "
           f"{json.dumps(launches[f'{arch}/prefill'])}; logits finite",
@@ -2348,6 +2513,166 @@ def tracked_generate(model, cfg, device, prompt, want):
           f"ms a step in " + ", ".join(f"{k} {v:.3f}" for k, v in
                                        per_step.items())
           + f"; launches {json.dumps(launches[path])}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: checkpoints on the card and reshard plans
+# ---------------------------------------------------------------------------
+CKPT_ARCH, CKPT_TOKENS = "mamba2-130m", (2, 2048)
+RESHARD_ARCH = "qwen1.5-4b"
+RESHARD_STACKS = ((0, 1, 2, 3), (0, 1, 2))
+RESHARD_MESHES = ((4, 4), (2, 4))
+
+
+def phase_checkpoint(device) -> dict:
+    """``repro_torch.checkpoint`` on the card: mamba2-130m at full width
+    saved from the card and restored onto it (every parameter and the
+    prefill logits bit-equal to those before the save: the kernels have
+    no atomics, so a run repeats its bits), a tree of bf16 and int32
+    leaves (bf16 stored as its uint16 bits) and an empty dict through a
+    round trip, ``prune`` and ``latest_step`` with a stale ``.tmp``
+    directory; then ``cross_stack_reshard_plan`` on qwen1.5-4b's fp32
+    leaf bytes over four paper-mesh stacks, stacks (0, 1, 2, 3) -> (0, 1,
+    2), with the stacks' CCUs on the card, equal to the same plan on the
+    CPU (results, report, telemetry), and ``reshard_plan`` of the same
+    bytes on a (4, 4) -> (2, 4) device mesh, its rounds conflict-free.
+    Files go under the checkout's git-ignored ``build/`` and are removed.
+    Returns the launches of the restored model's prefill and of the
+    reshard on the card."""
+    import shutil
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.checkpoint.reshard import reshard_plan_with_report
+    from repro_torch.configs import get_config
+    from repro_torch.core import PAPER_MESH, make_topology
+    from repro_torch.kernels import _lib
+    from repro_torch.models import CausalLM, make_model
+    from repro_torch.train import make_prefill_step
+    launches = {}
+    root = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        cfg = get_config(CKPT_ARCH)
+        model = make_model(cfg, device=device, seed=SEED + 2)
+        toks = torch.randint(0, cfg.vocab, CKPT_TOKENS, device=device,
+                             generator=torch.Generator(device).manual_seed(
+                                 SEED + 3))
+        before = make_prefill_step(model, cfg)(toks)
+        d = str(root / "model")
+        t0 = time.perf_counter()
+        ckpt.save(d, 1, {"params": model.state_dict()},
+                  extra_meta={"arch": cfg.name})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree, manifest = ckpt.restore(d, device=device)
+        torch.cuda.synchronize(device)
+        restore_s = time.perf_counter() - t0
+        state = model.state_dict()
+        check(sorted(tree["params"]) == sorted(state)
+              and manifest["arch"] == cfg.name, "checkpoint: keys differ")
+        for name, val in state.items():
+            got = tree["params"][name]
+            check(got.device == val.device and got.dtype == val.dtype
+                  and torch.equal(got, val),
+                  f"checkpoint: {name} differs after the round trip")
+        n_bytes = sum(v.numel() * v.element_size() for v in state.values())
+        del model, state
+        restored = CausalLM(cfg, device)
+        restored.load_state_dict(tree["params"])
+        del tree
+        _lib.reset_launch_counts()
+        after = make_prefill_step(restored, cfg)(toks)
+        torch.cuda.synchronize(device)
+        launches["checkpoint/restored_prefill"] = dict(_lib.launch_counts)
+        check_launches("checkpoint/restored_prefill",
+                       launches["checkpoint/restored_prefill"],
+                       layer_kernels(cfg))
+        check(torch.equal(after, before),
+              "checkpoint: the restored model's prefill logits differ: "
+              f"max |d| {float((after - before).abs().max())}")
+        del restored, before, after
+        print(f"[checkpoint] {cfg.name} ({n_bytes / 2**20:.1f} MiB fp32) "
+              f"saved from the card in {save_s:.2f} s, restored onto it in "
+              f"{restore_s:.2f} s: every parameter and the prefill logits "
+              f"(B={CKPT_TOKENS[0]} x S={CKPT_TOKENS[1]}, launches "
+              f"{json.dumps(launches['checkpoint/restored_prefill'])}) "
+              f"bit-equal", flush=True)
+
+        gen = torch.Generator(device).manual_seed(SEED + 4)
+        small = {"h": torch.randn((64, 96), generator=gen, device=device)
+                 .bfloat16(),
+                 "opt": {"ids": torch.randint(-2**31, 2**31 - 1, (257,),
+                                              generator=gen, device=device,
+                                              dtype=torch.int32),
+                         "empty": {}}}
+        d = str(root / "small")
+        for step in (2, 3, 4):
+            ckpt.save(d, step, small)
+        (root / "small" / "step_00000009.tmp").mkdir()
+        ckpt.prune(d, keep=2)
+        kept = sorted(x.name for x in (root / "small").iterdir())
+        check(kept == ["step_00000003", "step_00000004", "step_00000009.tmp"]
+              and ckpt.latest_step(d) == 4,
+              f"checkpoint: prune / latest_step left {kept}")
+        got, manifest = ckpt.restore(d, device=device)
+        check(manifest["step"] == 4
+              and manifest["keys"]["h"]["dtype"] == "bfloat16"
+              and manifest["keys"]["opt/ids"]["dtype"] == "int32"
+              and got["opt"]["empty"] == {}
+              and got["h"].dtype == torch.bfloat16
+              and torch.equal(got["h"].view(torch.int16),
+                              small["h"].view(torch.int16))
+              and torch.equal(got["opt"]["ids"], small["opt"]["ids"]),
+              "checkpoint: the bf16 / int32 tree differs after the round "
+              "trip")
+        print("[checkpoint] bf16 (as uint16 bits) and int32 leaves and an "
+              "empty dict bit-equal through save and restore on the card; "
+              "prune(keep=2) kept steps 3 and 4, latest_step 4 past a stale "
+              ".tmp", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    meta = {k: v.numel() * 4 for k, v in
+            CausalLM(get_config(RESHARD_ARCH), "meta").state_dict().items()}
+    topo = make_topology(4, PAPER_MESH)
+    runs = []                          # the card's, then the CPU's
+    for dev in (device, torch.device("cpu")):
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, rep = ckpt.cross_stack_reshard_plan(meta, topo, *RESHARD_STACKS,
+                                                 device=dev)
+        if not runs:
+            torch.cuda.synchronize(dev)
+            launches["checkpoint/cross_stack_reshard"] = dict(
+                _lib.launch_counts)
+        runs.append(([(r.searched_cycle, cluster_key(r.circuit))
+                      for r in res], dataclasses.asdict(rep),
+                     (time.perf_counter() - t0) * 1e3))
+    check(runs[0][:2] == runs[1][:2],
+          "cross_stack_reshard_plan: the card's results or report differ "
+          "from the CPU's")
+    counts = launches["checkpoint/cross_stack_reshard"]
+    check(set(k for k, n in counts.items() if n) <= {"fused_prepare"},
+          f"cross_stack_reshard_plan launched {counts}")
+    rep = runs[0][1]
+    plan, prep = reshard_plan_with_report(meta, *RESHARD_MESHES)
+    for rnd in plan.rounds():
+        hops = [h for _i, h in rnd]
+        check(len(hops) == len(set(hops)),
+              "reshard_plan: a round uses a link twice")
+    print(f"[checkpoint] cross_stack_reshard_plan of {RESHARD_ARCH}'s "
+          f"{len(meta)} fp32 leaves ({sum(meta.values()) / 2**30:.2f} GiB) "
+          f"over 4 paper-mesh stacks, {RESHARD_STACKS[0]} -> "
+          f"{RESHARD_STACKS[1]}: {rep['n_requests']} moves, "
+          f"{rep['n_scheduled']} scheduled, {rep['n_cross_stack']} cross-"
+          f"stack, {rep['n_windows']} TDM windows; results and report equal "
+          f"to the CPU's; {runs[0][2]:.1f} ms on the card, "
+          f"{runs[1][2]:.1f} ms on the CPU; launches {json.dumps(counts)}"
+          f"; reshard_plan {RESHARD_MESHES[0]} -> {RESHARD_MESHES[1]}: "
+          f"{len(plan.transfers)} transfers in {plan.n_rounds} conflict-free "
+          f"rounds (max in flight {prep.max_inflight})", flush=True)
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2499,10 +2824,11 @@ def main() -> int:
 
     launches.update(phase_serving_slo(device))
 
-    for arch in MODELS:
+    for arch in SMOKE_ARCHS:
         phase_smoke_model(device, arch)
     for arch in MODELS:
         launches.update(phase_model(device, arch))
+    launches.update(phase_checkpoint(device))
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -2516,6 +2842,8 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms")})
+        if "dense" in row:             # flash attention's D = 128 shapes
+            kernels[-1]["dense"] = row["dense"]
         if name not in model_rows:     # the slot kernels: B = 1 and 64
             one = rows[(name, 1)]
             kernels[-1].update({

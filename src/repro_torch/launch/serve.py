@@ -1,8 +1,11 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>
 [--smoke] [--device cpu]`` (counterpart of ``repro.launch.serve``).
 
-Initialises the model's weights on the device from a seeded generator
-and generates greedily from a seeded random prompt.  The engine runs with
+``--arch`` takes all ten archs of ``repro_torch.configs.ARCHS``; one the
+port does not run yet (paligemma, the MoE configs, whisper) raises
+``models.lm.check_supported``'s ``NotImplementedError``.  Initialises
+the model's weights on the device from a seeded generator and generates
+greedily from a seeded random prompt.  The engine runs with
 its defaults, as the reference's launcher does: the stream is a tenant of
 the NoM bank pool, and every step's cache movement is scheduled on the
 engine's fabric (on the same device)."""

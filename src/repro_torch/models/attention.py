@@ -9,10 +9,13 @@ attention): one call, with ``scale=1.0`` because q is scaled in
 ``_qkv``.  Its masks come from the kernel's block offsets, so the
 reference's ``_mask`` has no counterpart here.  Decode stays plain
 PyTorch, as the reference's einsum decode is outside any TPU kernel.
-Not in this slice: cross-attention, QKV bias and QK norm (the config
-has no field for them; ``models.lm.check_supported`` refuses configs
-that need them), prefix-LM and logit soft-capping on prefill (raise
-``NotImplementedError``: the TPU kernel has neither).
+QKV bias and QK norm follow the reference's order in prefill and decode:
+the projections, the bias (in the compute dtype), the QK norm (a plain
+``RMSNorm(head_dim)`` with unit scale, also for gemma3, whose
+zero-centered norms are the layer norms only), RoPE, then the scale.
+Not in this slice: cross-attention (``models.lm.check_supported``
+refuses the configs that need it), prefix-LM and logit soft-capping on
+prefill (raise ``NotImplementedError``: the TPU kernel has neither).
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
 
-from .common import COMPUTE_DTYPE, apply_rope, dense_init_, param, softcap
+from .common import (COMPUTE_DTYPE, RMSNorm, apply_rope, dense_init_, param,
+                     softcap)
 
 NEG_INF = -2.3819763e38   # the reference's additive mask value
 
@@ -37,6 +41,8 @@ class AttentionConfig:
     head_dim: int
     rope_theta: float = 10000.0
     use_rope: bool = True
+    qkv_bias: bool = False
+    qk_norm: bool = False
     logit_softcap: float | None = None
     window: int | None = None          # sliding-window size (None = global)
     causal: bool = True                # False: encoder (bidirectional)
@@ -54,16 +60,33 @@ class Attention(nn.Module):
         self.wk = param((c.d_model, c.n_kv, c.head_dim), device)
         self.wv = param((c.d_model, c.n_kv, c.head_dim), device)
         self.wo = param((c.n_heads, c.head_dim, c.d_model), device)
+        if c.qkv_bias:
+            self.bq = param((c.n_heads, c.head_dim), device)
+            self.bk = param((c.n_kv, c.head_dim), device)
+            self.bv = param((c.n_kv, c.head_dim), device)
+        if c.qk_norm:
+            self.q_norm = RMSNorm(c.head_dim, device=device)
+            self.k_norm = RMSNorm(c.head_dim, device=device)
 
     def reset_parameters(self, generator=None) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
             dense_init_(w, generator)
+        if self.cfg.qkv_bias:
+            with torch.no_grad():
+                for b in (self.bq, self.bk, self.bv):
+                    b.zero_()
 
     def _qkv(self, x, positions):
         c = self.cfg
         q = torch.einsum("bsd,dnh->bsnh", x, self.wq.to(x.dtype))
         k = torch.einsum("bsd,dnh->bsnh", x, self.wk.to(x.dtype))
         v = torch.einsum("bsd,dnh->bsnh", x, self.wv.to(x.dtype))
+        if c.qkv_bias:
+            q = q + self.bq.to(q.dtype)
+            k = k + self.bk.to(k.dtype)
+            v = v + self.bv.to(v.dtype)
+        if c.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
         if c.use_rope:
             q = apply_rope(q, positions, c.rope_theta)
             k = apply_rope(k, positions, c.rope_theta)

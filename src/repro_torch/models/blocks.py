@@ -32,7 +32,8 @@ def make_mixer(cfg: ArchConfig, kind: LayerKind, device=None):
             d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             head_dim=cfg.resolved_head_dim,
             rope_theta=kind.rope_theta or cfg.rope_theta,
-            use_rope=cfg.use_rope, logit_softcap=cfg.logit_softcap,
+            use_rope=cfg.use_rope, qkv_bias=cfg.qkv_bias,
+            qk_norm=cfg.qk_norm, logit_softcap=cfg.logit_softcap,
             window=kind.window), device)
     if kind.mixer == "ssm":
         return Mamba2(SSMConfig(d_model=cfg.d_model, d_state=cfg.ssm_state,
@@ -45,7 +46,10 @@ def make_mixer(cfg: ArchConfig, kind: LayerKind, device=None):
 
 class DecoderLayer(nn.Module):
     """Pre-norm residual layer: mixer, then the ffn where the kind has
-    one (``ffn="none"``, as mamba2's, has neither ``ln2`` nor ``ffn``)."""
+    one (``ffn="none"``, as mamba2's, has neither ``ln2`` nor ``ffn``).
+    With ``cfg.post_norms`` (gemma3's sandwich norms) ``ln1_post`` and
+    ``ln2_post`` normalise the mixer's and the ffn's outputs before their
+    residual adds."""
 
     def __init__(self, cfg: ArchConfig, kind: LayerKind, device=None):
         super().__init__()
@@ -60,12 +64,26 @@ class DecoderLayer(nn.Module):
                                      use_bias=cfg.mlp_bias), device)
         else:
             self.ffn = None
+        self.post_norms = cfg.post_norms
+        if cfg.post_norms:
+            self.ln1_post = _norm(cfg, device)
+            if self.ffn is not None:
+                self.ln2_post = _norm(cfg, device)
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.ffn is None else x + self.ffn(self.ln2(x))
+    def _residual(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """x + the mixer's output h, then the ffn's block."""
+        if self.post_norms:
+            h = self.ln1_post(h)
+        x = x + h
+        if self.ffn is None:
+            return x
+        h = self.ffn(self.ln2(x))
+        if self.post_norms:
+            h = self.ln2_post(h)
+        return x + h
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._ffn(x + self.mixer(self.ln1(x)))
+        return self._residual(x, self.mixer(self.ln1(x)))
 
     def decode(self, x: torch.Tensor, cache: dict, pos: int):
         h = self.ln1(x)
@@ -73,7 +91,7 @@ class DecoderLayer(nn.Module):
             h, cache = self.mixer.decode(h, cache, pos)
         else:
             h, cache = self.mixer.decode(h, cache)
-        return self._ffn(x + h), cache
+        return self._residual(x, h), cache
 
     def init_cache(self, batch: int, max_len: int, dtype,
                    device=None) -> dict:

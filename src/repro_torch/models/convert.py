@@ -29,8 +29,9 @@ def reference_items(tree: dict, cfg: ArchConfig):
     tree, without copying."""
     gs = len(cfg.pattern)
     n_groups = cfg.n_layers // gs
-    for top in ("embed", "final_norm"):
-        yield from _flat(tree[top], f"{top}.")
+    for top in ("embed", "final_norm", "lm_head"):
+        if top in tree:            # lm_head: untied heads only
+            yield from _flat(tree[top], f"{top}.")
     stack = tree["stack"]
     for i in range(gs if n_groups else 0):
         for name, arr in _flat(stack["groups"][f"l{i}"]):

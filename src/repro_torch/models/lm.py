@@ -1,11 +1,14 @@
 """Top-level model (counterpart of ``repro.models.lm``): the decoder-only
 ``CausalLM`` with its decode step.
 
-Its layers are attention, RG-LRU and SSM (Mamba-2) mixers with an MLP
-ffn or none.  Not ported yet: ``EncDecLM`` (whisper), prefix-LM inputs
-(VLM), MoE layers, QKV bias, QK norm, LayerNorm, sandwich norms and
-untied heads; ``CausalLM`` and :func:`make_model` raise
-``NotImplementedError`` for configs that need them.
+Its layers are attention (with QKV bias, QK norm, sliding windows and a
+per-kind RoPE theta), RG-LRU and SSM (Mamba-2) mixers with a gated MLP
+ffn or none, pre-norm RMSNorms with gemma3's sandwich norms; the head is
+tied to the embedding or untied (``lm_head``).  Not ported yet:
+``EncDecLM`` (whisper), prefix-LM inputs (VLM), MoE layers, LayerNorm
+and ungated or biased MLPs; ``CausalLM`` and :func:`make_model` raise
+``NotImplementedError`` for configs that need them
+(:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -16,7 +19,22 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
 from .blocks import LayerStack, _norm
-from .common import COMPUTE_DTYPE, Embed
+from .common import COMPUTE_DTYPE, Embed, dense_init_, param
+
+
+class LMHead(nn.Module):
+    """The untied output projection: ``kernel`` (d_model, padded vocab),
+    fp32 logits of fp32 inputs (the reference's ``_logits``)."""
+
+    def __init__(self, d_model: int, vocab: int, device=None):
+        super().__init__()
+        self.kernel = param((d_model, vocab), device)
+
+    def reset_parameters(self, generator=None) -> None:
+        dense_init_(self.kernel, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.float() @ self.kernel.float()
 
 
 class CausalLM(nn.Module):
@@ -33,6 +51,8 @@ class CausalLM(nn.Module):
                            device=device)
         self.stack = LayerStack(cfg, cfg.n_layers, device)
         self.final_norm = _norm(cfg, device)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        LMHead(cfg.d_model, cfg.padded_vocab, device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Initialise every parameter in place from ``generator``."""
@@ -44,7 +64,14 @@ class CausalLM(nn.Module):
         """tokens: (B, S) int -> logits (B, S, V) fp32 (the reference's
         ``apply`` without its MoE aux loss)."""
         x = self.stack(self.embed(tokens, self.compute_dtype))
-        return self.embed.attend(self.final_norm(x))
+        return self.logits(self.final_norm(x))
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """fp32 logits of the final hidden state: the tied embedding's
+        or the untied head's."""
+        if self.lm_head is None:
+            return self.embed.attend(x)
+        return self.lm_head(x)
 
     def init_caches(self, batch: int, max_len: int) -> list:
         return self.stack.init_caches(batch, max_len, self.compute_dtype)
@@ -72,7 +99,7 @@ class CausalLM(nn.Module):
         """token: (B, 1) -> (logits (B, 1, V) fp32, caches)."""
         x, caches = self.stack.decode(self.embed(token, self.compute_dtype),
                                       caches, pos)
-        return self.embed.attend(self.final_norm(x)), caches
+        return self.logits(self.final_norm(x)), caches
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -85,12 +112,10 @@ def check_supported(cfg: ArchConfig) -> None:
             missing.append(f"{k.mixer} mixers")
         if k.ffn not in ("mlp", "none"):
             missing.append(f"{k.ffn} ffns")
-    if cfg.norm_type != "rms" or cfg.post_norms:
-        missing.append("LayerNorm / sandwich norms")
-    if not cfg.tie_embeddings:
-        missing.append("untied LM head")
-    if cfg.qkv_bias or cfg.qk_norm:
-        missing.append("QKV bias / QK norm")
+    if cfg.norm_type != "rms":
+        missing.append("LayerNorm")
+    if not cfg.gated_mlp or cfg.mlp_bias:
+        missing.append("ungated / biased MLPs")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {', '.join(sorted(set(missing)))} "

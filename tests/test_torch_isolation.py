@@ -27,6 +27,8 @@ def test_import_leaves_jax_and_repro_out():
         "from repro_torch.core import NomFabric, TdmAllocatorLight\n"
         "from repro_torch.core import FabricCluster, nom_allreduce_banks\n"
         "from repro_torch.models import make_model, params_from_reference\n"
+        "import repro_torch.checkpoint, repro_torch.configs.nom_paper\n"
+        "from repro_torch.checkpoint import cross_stack_reshard_plan, restore\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('LEAKED', bad)\n")

@@ -5,7 +5,10 @@ interpret mode and against ``rglru_ref``, on the shapes and with the
 tolerances of ``tests/test_kernels.py``'s sweeps (plus an MQA, D=256,
 windowed case: the recurrentgemma layout, and bf16 cases for every head
 dim of the bf16 kernel: GQA, no window, a window under one key block, Sk
-!= Sq without causality, S not a block multiple).  The Pallas kernel runs
+!= Sq without causality, S not a block multiple; the dense family's GQA
+ratios 1 and 12 at D=128), the wrapper's zero-padding of D=8, and the
+reference's own spread at cuts of recurrentgemma's and qwen1.5-4b's
+prefill shapes.  The Pallas kernel runs
 with the plain version's bf16 key block, so both round the probabilities
 against the same running max.  Inputs come from a numpy seed.
 
@@ -41,6 +44,10 @@ FLASH_CASES = [
     # Sk != Sq without causality; Sk a block multiple, as the Pallas
     # wrapper masks no padded key when not causal (seq_k = padded Sk).
     (2, 100, 192, 4, 2, 128, False, None, "bfloat16", 2e-2),
+    # the dense family's GQA ratios at D=128: qwen1.5 (20/20, g=1) and
+    # command-r-plus (96/8, g=12) with their heads cut
+    (1, 200, 200, 20, 20, 128, True, None, "bfloat16", 2e-2),
+    (1, 200, 200, 24, 2, 128, True, None, "bfloat16", 2e-2),
 ]
 # b, s, w, chunk (of the Pallas kernel), dtype, tol
 RGLRU_CASES = [
@@ -137,6 +144,60 @@ def test_flash_model_cut_spread(ref, seed):
                  - np.asarray(want.astype(jnp.float32))).max()
     print(f"seed {seed}: max |Pallas interpret - plain| {err:.6g}")
     assert err < FLASH_MODEL_TOL, err
+
+
+# chip_smoke.py's FLASH_DENSE_TOL: the bf16 kernel's bound at qwen1.5-4b's
+# prefill shape (20 q-heads on 20 KV heads of 128, causal over S = 4096,
+# no window), on six seeds.
+FLASH_DENSE_TOL = 1e-2
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_flash_dense_cut_spread(ref, seed):
+    """The reference's own spread at a cut of qwen1.5-4b's prefill shape
+    (S 4096 -> 1024, batch 1; its 20 q-heads on 20 KV heads of 128, full
+    causal mask, q pre-scaled as the model does, scale 1): the Pallas
+    kernel in interpret mode against the plain version, in bf16, with the
+    plain version's 64-key blocks.  The card's kernel is held under the
+    same bound at the full shape (printed: run with -s)."""
+    from repro.kernels.flash_attention.flash_attention import \
+        flash_attention_fwd as pallas_fwd
+    jnp = ref[0]
+    s, h, d = 1024, 20, 128
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, h, s, d)).astype(np.float32) * d ** -0.5
+    k, v = (rng.standard_normal((1, h, s, d)).astype(np.float32)
+            for _ in range(2))
+    want = pallas_fwd(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                      causal=True, window=None, scale=1.0,
+                      block_k=KEY_BLOCK[torch.bfloat16], interpret=True)
+    got = flash_attention_plain(*(torch.tensor(x).bfloat16()
+                                  for x in (q, k, v)), causal=True,
+                                window=None, scale=1.0, seq_k=s)
+    err = np.abs(got.float().numpy()
+                 - np.asarray(want.astype(jnp.float32))).max()
+    print(f"seed {seed}: max |Pallas interpret - plain| {err:.6g}")
+    assert err < FLASH_DENSE_TOL, err
+
+
+def test_flash_pads_small_head_dims():
+    """D = 8 (command-r-plus-smoke) is zero-padded to the kernel's
+    smallest head dim and sliced back: equal to the plain version on the
+    unpadded tensors in fp32 (to rounding: the padded columns add exact
+    zeros) and in bf16."""
+    for dtype, tol in ((torch.float32, 2e-6), (torch.bfloat16, 2e-2)):
+        q, k, v = (torch.tensor(x).to(dtype)
+                   for x in _qkv((2, 80, 80, 8, 2, 8), 12))
+        got = flash_attention(q, k, v, window=48)
+        assert got.shape == q.shape and got.dtype == dtype
+        pq, pk = (-80) % BLOCK_Q, (-80) % BLOCK_K
+        qt, kt, vt = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, p))
+                      .transpose(1, 2) for x, p in ((q, pq), (k, pk),
+                                                    (v, pk)))
+        want = flash_attention_plain(qt, kt, vt, causal=True, window=48,
+                                     scale=8 ** -0.5, seq_k=80)
+        want = want.transpose(1, 2)[:, :80]
+        assert (got.float() - want.float()).abs().max().item() < tol
 
 
 def test_flash_masks_padded_keys(ref):
@@ -272,6 +333,21 @@ def test_cuda_flash_matches_plain(cuda_device, case):
     assert _lib.launch_counts["flash_attention"] == before + 1
     err = (got.float() - want.float())[:, :, :sq].abs().max().item()
     assert err < tol, err
+
+
+@pytest.mark.cuda
+def test_cuda_flash_pads_small_head_dims(cuda_device):
+    """command-r-plus-smoke's D = 8 through the model-layout wrapper on
+    the card: one launch, within the bf16 tolerance of the same call on
+    the CPU."""
+    q, k, v = (torch.tensor(x).bfloat16()
+               for x in _qkv((2, 80, 80, 8, 2, 8), 13))
+    before = _lib.launch_counts["flash_attention"]
+    got = flash_attention(*(x.to(cuda_device) for x in (q, k, v)), scale=1.0)
+    torch.cuda.synchronize()
+    assert _lib.launch_counts["flash_attention"] == before + 1
+    want = flash_attention(q, k, v, scale=1.0)
+    assert (got.cpu().float() - want.float()).abs().max().item() < 2e-2
 
 
 @pytest.mark.cuda

@@ -100,7 +100,8 @@ def test_config_mirrors_reference(jx, smoke):
     got = get_config("recurrentgemma-9b", smoke=smoke)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.param_count_estimate() == want.param_count_estimate()
-    assert sorted(ARCHS) == ["mamba2-130m", "recurrentgemma-9b"]
+    import repro.configs as jconfigs
+    assert list(ARCHS) == list(jconfigs.ARCHS) and len(ARCHS) == 10
 
 
 def test_full_width_parameters_match_reference(jx):
@@ -383,15 +384,20 @@ def test_make_model_seeds_and_refuses_unported_configs():
             make_model(cfg)
     k = cfg.pattern[0]
     for bad in (dataclasses.replace(cfg, arch_type="encdec"),
-                dataclasses.replace(cfg, tie_embeddings=False),
+                dataclasses.replace(cfg, arch_type="vlm"),
                 dataclasses.replace(cfg, pattern=(dataclasses.replace(
                     k, ffn="moe"),)),
-                dataclasses.replace(cfg, qkv_bias=True),
-                dataclasses.replace(cfg, qk_norm=True)):
+                dataclasses.replace(cfg, norm_type="layer"),
+                dataclasses.replace(cfg, gated_mlp=False)):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_model(bad, device="cpu")
         with pytest.raises(NotImplementedError, match="not ported"):
             CausalLM(bad, "cpu")
+    for arch in ("paligemma-3b", "phi3.5-moe-42b-a6.6b",
+                 "qwen3-moe-235b-a22b", "whisper-small"):
+        for smoke in (True, False):
+            with pytest.raises(NotImplementedError, match="not ported"):
+                CausalLM(get_config(arch, smoke=smoke), "meta")
 
 
 def test_attention_refuses_what_the_kernel_lacks():

@@ -13,6 +13,7 @@ control plane is integer and host arithmetic, so every comparison is
 exact.  The one ``cuda`` test holds a drive on the card against the
 CPU."""
 import dataclasses
+import importlib.util
 import json
 import pathlib
 import types
@@ -530,7 +531,8 @@ def test_engine_defaults_to_the_card():
 
 
 # --- tracked generate --------------------------------------------------------
-@pytest.fixture(scope="module", params=["recurrentgemma-9b", "mamba2-130m"])
+@pytest.fixture(scope="module", params=["recurrentgemma-9b", "mamba2-130m",
+                                        "qwen1.5-4b", "gemma3-27b"])
 def smoke(request, R):
     """A smoke model drawn by the reference's ``init``, and the port's
     model on the same weights (CPU)."""
@@ -561,7 +563,11 @@ def test_tracked_generate_matches_reference(R, smoke):
     ref = R.serving.Engine(jmodel, jcfg, max_len=64)
     specs = eng._leaf_specs(3)
     assert _plain(specs) == _plain(ref._leaf_specs(3))
-    assert len(specs) == (10 if cfg.family == "hybrid" else 2)
+    # recurrentgemma: 12 scan groups of rglru, rglru, attn and a tail of
+    # two; gemma3: 2 groups of local, local, global and a tail of two
+    # (k and v a layer); mamba2 and qwen1.5: one group of one layer.
+    assert len(specs) == {"recurrentgemma-smoke": 10, "gemma3-smoke": 10,
+                          "mamba2-smoke": 2, "qwen1.5-smoke": 2}[cfg.name]
     out = eng.generate(torch.as_tensor(prompt), 8)
     ref.generate(params, jnp.asarray(prompt, jnp.int32), 8)
     assert len(eng.reports) == len(ref.reports) == 5 + 8 - 1 + 1
@@ -590,22 +596,45 @@ def test_generate_shed_from_tracking_keeps_tokens(smoke):
     assert torch.equal(out, plain.generate(prompt, 4))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])
-def test_full_width_leaf_specs_match_reference(R, arch):
-    """At full width and depth, from shapes alone (the port's model on
-    the meta device, the reference's through jax.eval_shape): the leaf
-    specs at launch/serve.py's max_len equal, recurrentgemma's 10 leaves
-    (12 scan groups of rglru, rglru, attn and a tail of two) and
-    mamba2's 2."""
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_mod",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# The archs chip_smoke.py serves at full width on the card (MODELS), with
+# its cut of layers (MODEL_LAYERS): gemma3-27b at 8 of its 62 layers, one
+# 5-local + 1-global period and a tail of two local layers.
+_SMOKE = _chip_smoke()
+FULL_WIDTH = {arch: _SMOKE.MODEL_LAYERS.get(arch) for arch in _SMOKE.MODELS}
+
+
+def _full_width(R, arch):
     from repro.configs import get_config as jget
     from repro.models import make_model as jmake
 
     from repro_torch.configs import get_config
     from repro_torch.models import CausalLM
-    model = CausalLM(get_config(arch), "meta")
+    jcfg, cfg = jget(arch), get_config(arch)
+    if FULL_WIDTH[arch] is not None:
+        jcfg = dataclasses.replace(jcfg, n_layers=FULL_WIDTH[arch])
+        cfg = dataclasses.replace(cfg, n_layers=FULL_WIDTH[arch])
+    return jmake(jcfg), jcfg, CausalLM(cfg, "meta")
+
+
+@pytest.mark.parametrize("arch", sorted(FULL_WIDTH))
+def test_full_width_leaf_specs_match_reference(R, arch):
+    """At full width (gemma3-27b at its 8-layer cut), from shapes alone
+    (the port's model on the meta device, the reference's through
+    jax.eval_shape): the leaf specs at launch/serve.py's max_len equal,
+    recurrentgemma's 10 leaves (12 scan groups of rglru, rglru, attn and
+    a tail of two), mamba2's 2, qwen1.5's 2 and gemma3's 16 (one group of
+    six layers, a tail of two, k and v each)."""
+    jmodel, jcfg, model = _full_width(R, arch)
     eng = P.Engine(model, model.cfg, max_len=40, track_transfers=False)
-    ref = R.serving.Engine(jmake(jget(arch)), jget(arch), max_len=40,
-                           track_transfers=False)
+    ref = R.serving.Engine(jmodel, jcfg, max_len=40, track_transfers=False)
     specs = eng._leaf_specs(4)
     assert _plain(specs) == _plain(ref._leaf_specs(4))
     tags = [s.tag for s in specs]
@@ -614,31 +643,44 @@ def test_full_width_leaf_specs_match_reference(R, arch):
                             "['groups']['l0']['h']"]
         assert tags[-1] == "['tail']['l1']['h']" and len(tags) == 10
         assert [s.ring_slots for s in specs if "['l2']" in s.tag] == [40, 40]
-    else:
+    elif arch == "mamba2-130m":
         assert tags == ["['groups']['l0']['conv']", "['groups']['l0']['ssm']"]
+    elif arch == "qwen1.5-4b":
+        assert tags == ["['groups']['l0']['k']", "['groups']['l0']['v']"]
+    else:
+        assert len(tags) == 16 and tags[-1] == "['tail']['l1']['v']"
+        assert all(s.ring_slots == 40 for s in specs)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", sorted(FULL_WIDTH))
 def test_full_width_tenant_matches_reference(R, arch):
     """A tenant with the full-width leaf specs through launch/serve.py's
-    lifetime (open, 31 steps, close) on the paper mesh: its circuits
-    hold megabytes (mamba2's ssm leaf 75 MB a step), and every report,
-    the telemetry and the slot tables equal the reference's."""
-    from repro.configs import get_config as jget
-    from repro.models import make_model as jmake
-
-    from repro_torch.configs import get_config
-    from repro_torch.models import CausalLM
-    model = CausalLM(get_config(arch), "meta")
+    lifetime (open, 31 steps, close) on the paper mesh: recurrentgemma's
+    and mamba2's circuits hold megabytes (mamba2's ssm leaf 75 MB a
+    step), the dense archs' a step of k or v rows, and every report, the
+    telemetry and the slot tables equal the reference's; gemma3's 16
+    leaves fill a fused wave a step."""
+    jmodel, jcfg, model = _full_width(R, arch)
     eng = P.Engine(model, model.cfg, max_len=40, device="cpu")
-    ref = R.serving.Engine(jmake(jget(arch)), jget(arch), max_len=40)
+    ref = R.serving.Engine(jmodel, jcfg, max_len=40)
     for e in (eng, ref):
         e.open_tenant("gen0", 4, queue=False)
         for _ in range(31):
             e.schedule_tick(["gen0"])
         e.close_tenant("gen0")
     _same_engine(ref, eng)
-    assert max(s.step_bytes for s in eng._leaf_specs(4)) > 10**6
+    specs = eng._leaf_specs(4)
+    if arch in ("recurrentgemma-9b", "mamba2-130m"):
+        assert max(s.step_bytes for s in specs) > 10**6
+    else:
+        # One decode step's k or v rows for B=4 in bf16: qwen1.5's leaves
+        # stack all 40 layers (800 KiB each), gemma3's one layer (16 KiB).
+        cfg = model.cfg
+        row = 4 * cfg.n_kv * cfg.resolved_head_dim * 2
+        layers = cfg.n_layers if arch == "qwen1.5-4b" else 1
+        assert [s.step_bytes for s in specs] == [row * layers] * len(specs)
+    if arch == "gemma3-27b":
+        assert eng.fabric.telemetry()["fused_waves"] >= 31
 
 
 @settings(max_examples=60, deadline=None, database=None)
